@@ -1,0 +1,74 @@
+"""Model / shape configuration dataclasses (the port's own copy of
+``repro.configs.base``; MoE and MLA settings arrive with the slices that
+port those blocks)."""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+__all__ = ["Block", "ModelConfig", "ShapeSpec"]
+
+
+# mixer:  attn | attn_local | attn_cross | mla | rwkv | rglru
+# ffn:    dense | moe | rwkv_cmix | none
+@dataclasses.dataclass(frozen=True)
+class Block:
+    mixer: str = "attn"
+    ffn: str = "dense"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | ssm | moe | audio | hybrid | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    qkv_bias: bool = False
+    causal: bool = True
+    blocks_prefix: tuple[Block, ...] = ()
+    blocks_pattern: tuple[Block, ...] = (Block(),)
+    local_window: int = 0
+    n_img_tokens: int = 0
+    frontend: Literal["token", "frames", "patches"] = "token"
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    rwkv_head_dim: int = 64
+    rglru_conv_width: int = 4
+    rglru_lru_width: int = 0      # 0 -> d_model
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def block_list(self) -> tuple[Block, ...]:
+        """The full, explicit per-layer block sequence."""
+        blocks = list(self.blocks_prefix)
+        pat = self.blocks_pattern
+        while len(blocks) < self.n_layers:
+            blocks.extend(pat)
+        return tuple(blocks[: self.n_layers])
+
+    def scan_partition(self) -> tuple[tuple[Block, ...], int, tuple[Block, ...], tuple[Block, ...]]:
+        """Partition layers into (prefix, n_scan_superblocks, pattern, suffix),
+        as the JAX package stacks them; the converter uses it to unstack."""
+        pre = self.blocks_prefix
+        rest = self.n_layers - len(pre)
+        p = len(self.blocks_pattern)
+        n_scan = rest // p
+        suffix = self.blocks_pattern[: rest % p]
+        return pre, n_scan, self.blocks_pattern, suffix
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]

@@ -1,0 +1,25 @@
+"""Architecture registry: ``--arch <id>`` resolution for the port's entry
+points.  It holds the architectures whose path the port runs so far."""
+
+from __future__ import annotations
+
+from . import rwkv6_7b
+from .base import ModelConfig
+
+_MODULES = {m.ARCH_ID: m for m in (rwkv6_7b,)}
+
+ARCHS: tuple[str, ...] = tuple(_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; known: {list(ARCHS)}")
+    return _MODULES[arch]
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).config()
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).smoke_config()

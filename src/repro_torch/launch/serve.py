@@ -1,0 +1,134 @@
+"""Batched serving: prefill of a batch of prompts, then greedy decode with
+the recurrent state.  Counterpart of ``examples/serve_decode.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        [--smoke] [--batch 8 --prompt-len 24 --gen-len 16] [--device cpu]
+
+Prompts come from numpy with ``--seed``; parameters from a
+``torch.Generator`` seeded the same way, on the device.  Prefill runs in f32
+compute on an f32 cache; decode runs in ``TrainConfig.compute_dtype``, as the
+JAX example does.  Between the two the parameters are cast once, in place, so
+the card holds one serving copy: ``serve`` consumes the parameters it is
+given.  It prints a sample token row.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..configs.base import ModelConfig
+from ..configs.registry import ARCHS, get_config, get_smoke_config
+from ..device import resolve_device
+from ..models.layers import Params
+from ..models.model import cast_params_, forward, init_cache, init_params, param_dtypes
+from ..train.train_step import TrainConfig, build_serve_step
+
+__all__ = ["ServeResult", "make_prompts", "init_model", "serve", "main"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeResult:
+    tokens: np.ndarray      # (B, gen_len) int32: first from prefill, then decode
+    prefill_s: float        # prefill, ending in a device synchronise
+    decode_s: float         # the gen_len - 1 decode steps
+
+
+def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+
+
+def init_model(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
+               device: str | torch.device | None = None) -> Params:
+    """Random parameters in ``tcfg.param_dtype``, drawn on the device."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(cfg, gen, device)
+    return cast_params_(params, tcfg.param_dtype)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(cfg: ModelConfig, params: Params, prompts: np.ndarray, gen_len: int,
+          tcfg: TrainConfig = TrainConfig(),
+          device: str | torch.device | None = None) -> ServeResult:
+    """Prefill ``prompts`` (B, P), then decode to ``gen_len`` tokens in all.
+    ``params`` must be in ``tcfg.param_dtype``; they are cast in place to
+    ``tcfg.compute_dtype`` after prefill, so a second call with the same
+    parameters raises rather than prefilling on the cast copy."""
+    device = resolve_device(device)
+    if gen_len < 1:
+        raise ValueError(f"gen_len must be >= 1, got {gen_len}")
+    if param_dtypes(params) != {tcfg.param_dtype}:
+        raise ValueError(
+            f"serve() prefills on parameters in {tcfg.param_dtype}; these are in "
+            f"{sorted(map(str, param_dtypes(params)))} (already cast by an earlier call?)"
+        )
+    b, p = prompts.shape
+    toks = torch.from_numpy(np.ascontiguousarray(prompts, dtype=np.int32)).to(device)
+    with torch.inference_mode():
+        t0 = time.perf_counter()  # lint: allow[wallclock] measured serving time
+        cache = init_cache(cfg, b, dtype=torch.float32, device=device)
+        logits, cache = forward(cfg, params, {"tokens": toks}, cache=cache,
+                                compute_dtype=torch.float32)
+        last = logits[:, -1].float()
+        del logits
+        if not bool(torch.isfinite(last).all()):
+            raise RuntimeError("prefill produced non-finite logits")
+        tok = last.argmax(dim=-1).to(torch.int32)
+        _sync(device)
+        t1 = time.perf_counter()  # lint: allow[wallclock] measured serving time
+
+        cast_params_(params, tcfg.compute_dtype)
+        step = build_serve_step(cfg, tcfg, kind="decode", device=device)
+        _sync(device)
+        t2 = time.perf_counter()  # lint: allow[wallclock] measured serving time
+        outs = [tok]
+        for _ in range(gen_len - 1):
+            tok, cache = step(params, cache, {"tokens": tok[:, None]})
+            outs.append(tok)
+        _sync(device)
+        t3 = time.perf_counter()  # lint: allow[wallclock] measured serving time
+    tokens = torch.stack(outs, dim=1).cpu().numpy()
+    return ServeResult(tokens=tokens, prefill_s=t1 - t0, decode_s=t3 - t2)
+
+
+def main(argv: list[str] | None = None) -> ServeResult:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="rwkv6-7b", choices=ARCHS)
+    ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None, help="default: cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    tcfg = TrainConfig()
+    device = resolve_device(args.device)
+    params = init_model(cfg, tcfg, args.seed, device)
+    prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed)
+    res = serve(cfg, params, prompts, args.gen_len, tcfg, device)
+    print(f"arch={cfg.name}: prefilled {args.batch} x {args.prompt_len} tokens "
+          f"on {device} in {res.prefill_s * 1e3:.1f} ms")
+    gen = res.tokens
+    if gen.shape != (args.batch, args.gen_len):
+        raise RuntimeError(f"decoded tokens have shape {gen.shape}")
+    if not ((gen >= 0) & (gen < cfg.vocab_size)).all():
+        raise RuntimeError("decoded a token outside the vocabulary")
+    print(f"decoded {gen.shape[1]} steps in {res.decode_s * 1e3:.1f} ms; "
+          f"sample row: {gen[0].tolist()}")
+    return res
+
+
+if __name__ == "__main__":
+    main()
