@@ -3,10 +3,10 @@ points.  It holds the architectures whose path the port runs so far."""
 
 from __future__ import annotations
 
-from . import rwkv6_7b
+from . import recurrentgemma_9b, rwkv6_7b
 from .base import ModelConfig
 
-_MODULES = {m.ARCH_ID: m for m in (rwkv6_7b,)}
+_MODULES = {m.ARCH_ID: m for m in (rwkv6_7b, recurrentgemma_9b)}
 
 ARCHS: tuple[str, ...] = tuple(_MODULES)
 

@@ -1,15 +1,19 @@
 """Batched serving: prefill of a batch of prompts, then greedy decode with
-the recurrent state.  Counterpart of ``examples/serve_decode.py``.
+the recurrent state and the attention cache.  Counterpart of
+``examples/serve_decode.py``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch rwkv6-7b|recurrentgemma-9b \
         [--smoke] [--batch 8 --prompt-len 24 --gen-len 16] [--device cpu]
 
 Prompts come from numpy with ``--seed``; parameters from a
-``torch.Generator`` seeded the same way, on the device.  Prefill runs in f32
-compute on an f32 cache; decode runs in ``TrainConfig.compute_dtype``, as the
-JAX example does.  Between the two the parameters are cast once, in place, so
-the card holds one serving copy: ``serve`` consumes the parameters it is
-given.  It prints a sample token row.
+``torch.Generator`` seeded the same way, on the device.  The cache holds
+``prompt_len + gen_len`` positions, as the JAX example sizes it.  Prefill
+runs in f32 compute on an f32 cache; decode runs in
+``TrainConfig.compute_dtype``, as the JAX example does.  Between the two the
+parameters are cast once, in place, so the card holds one serving copy:
+``serve`` consumes the parameters it is given.  It prints a sample token
+row.
 """
 
 from __future__ import annotations
@@ -73,10 +77,20 @@ def serve(cfg: ModelConfig, params: Params, prompts: np.ndarray, gen_len: int,
             f"{sorted(map(str, param_dtypes(params)))} (already cast by an earlier call?)"
         )
     b, p = prompts.shape
+    max_len = p + gen_len
+    window = cfg.local_window
+    if (any(blk.mixer == "attn_local" for blk in cfg.block_list())
+            and max_len >= window and p > window):
+        raise ValueError(
+            f"a prompt of {p} tokens is longer than the local-attention window "
+            f"({window}) of the ring cache a {max_len}-position cache becomes; the "
+            "JAX package prefills that case wrongly (ROADMAP, fault 5), the port "
+            "refuses it"
+        )
     toks = torch.from_numpy(np.ascontiguousarray(prompts, dtype=np.int32)).to(device)
     with torch.inference_mode():
         t0 = time.perf_counter()  # lint: allow[wallclock] measured serving time
-        cache = init_cache(cfg, b, dtype=torch.float32, device=device)
+        cache = init_cache(cfg, b, max_len, dtype=torch.float32, device=device)
         logits, cache = forward(cfg, params, {"tokens": toks}, cache=cache,
                                 compute_dtype=torch.float32)
         last = logits[:, -1].float()

@@ -1,10 +1,16 @@
 """Shared model primitives: plain functions on tensors over nested dicts of
-parameters, the subset of ``repro.models.layers`` that rwkv6 needs.
+parameters, the subset of ``repro.models.layers`` that rwkv6 and
+recurrentgemma need.
 
 Conventions (as in the JAX package): activations compute in ``x.dtype``;
 dense weights keep the JAX ``(d_in, d_out)`` layout, so ``y = x @ w``.  An
 init function takes a ``torch.Generator`` (``None`` on the meta device, where
 only shapes are made) and the device.
+
+Attention is plain tensor code (einsum, softmax), as the JAX package
+computes it outside any kernel.  Where JAX promotes a mixed bf16/f32
+einsum to f32 (bf16 queries over an f32 cache), the port casts explicitly
+in the same places: ``torch.einsum`` does not promote.
 """
 
 from __future__ import annotations
@@ -21,6 +27,16 @@ __all__ = [
     "normal",
     "dense_init",
     "dense_apply",
+    "rope_freqs",
+    "apply_rope",
+    "dense_attention",
+    "banded_attention",
+    "attention_any",
+    "gqa_init",
+    "gqa_apply",
+    "gqa_init_cache",
+    "swiglu_init",
+    "swiglu_apply",
     "rmsnorm_init",
     "rmsnorm_apply",
     "embed_init",
@@ -36,13 +52,19 @@ def normal(gen: torch.Generator | None, shape: tuple[int, ...], scale: float,
 
 
 def dense_init(gen, d_in: int, d_out: int, device: torch.device, *,
-               scale: float | None = None) -> Params:
+               scale: float | None = None, bias: bool = False) -> Params:
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return {"w": normal(gen, (d_in, d_out), scale, device)}
+    p = {"w": normal(gen, (d_in, d_out), scale, device)}
+    if bias:
+        p["b"] = torch.zeros(d_out, device=device)
+    return p
 
 
 def dense_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].to(x.dtype)
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
 
 
 def rmsnorm_init(d: int, device: torch.device) -> Params:
@@ -67,3 +89,265 @@ def embed_apply(p: Params, tokens: torch.Tensor, dtype: torch.dtype) -> torch.Te
 
 def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ p["table"].to(x.dtype).T
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float = 10_000.0,
+               device: torch.device | None = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10_000.0) -> torch.Tensor:
+    """x: (B, S, H, D) with D even; positions: (S,).  Rotates in f32 and
+    returns ``x.dtype``."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)              # (D/2,)
+    ang = positions.to(torch.float32)[:, None] * freqs            # (S, D/2)
+    cos = torch.cos(ang)[:, None, :]                              # (S, 1, D/2)
+    sin = torch.sin(ang)[:, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention strategies
+# ---------------------------------------------------------------------------
+
+_NEG = -1e30
+
+
+def _expand_gqa(q: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """(B, S, Hq, D) -> (B, S, Hkv, G, D)."""
+    b, s, hq, d = q.shape
+    return q.reshape(b, s, n_kv, hq // n_kv, d)
+
+
+def _promoted(x: torch.Tensor, y: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both operands in their promoted dtype, as ``jnp.einsum`` computes a
+    mixed product (bf16 with f32 is f32)."""
+    dt = torch.promote_types(x.dtype, y.dtype)
+    return x.to(dt), y.to(dt)
+
+
+def dense_attention(
+    q: torch.Tensor,                 # (B, Sq, Hq, D)
+    k: torch.Tensor,                 # (B, Sk, Hkv, D)
+    v: torch.Tensor,                 # (B, Sk, Hkv, Dv)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+    kv_len: int | None = None,
+) -> torch.Tensor:
+    """Reference attention with the scores materialised; GQA by head
+    grouping.  ``q_offset`` is the absolute position of q[0]; ``kv_len``
+    masks cache entries beyond the valid length."""
+    n_kv = k.shape[2]
+    qg, kk = _promoted(_expand_gqa(q, n_kv), k)                  # B Sq Hkv G D
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, kk) * scale
+    sq, sk = q.shape[1], k.shape[1]
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        mask &= qpos[:, None] - kpos[None, :] < window
+    if kv_len is not None:
+        mask &= kpos[None, :] < kv_len
+    logits = torch.where(mask, logits.float(), _NEG)
+    probs, vv = _promoted(torch.softmax(logits, dim=-1).to(q.dtype), v)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, vv)
+    b, _, hkv, g, dv = out.shape
+    return out.reshape(b, sq, hkv * g, dv)
+
+
+def banded_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    window: int,
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Causal local attention visiting only the in-window band: each chunk
+    of ``q_chunk`` queries sees a slice of ``window + q_chunk`` keys, so the
+    work is O(S * window), not O(S^2)."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, dv = v.shape
+    q_chunk = min(q_chunk, sq)
+    if sq % q_chunk:
+        raise ValueError(f"q_chunk {q_chunk} does not divide the length {sq}")
+    if sq != sk:
+        raise ValueError("banded attention is self-attention (Sq == Sk)")
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    band = window + q_chunk
+
+    # left-pad keys so every slice is in bounds
+    kp = F.pad(k, (0, 0, 0, 0, band - q_chunk, 0))
+    vp = F.pad(v, (0, 0, 0, 0, band - q_chunk, 0))
+    qs = q.reshape(b, sq // q_chunk, q_chunk, hkv, g, d)
+    blocks = []
+    for qi in range(sq // q_chunk):
+        start = qi * q_chunk     # padded slice [start, start + band) holds kv start - window ..
+        kb = kp[:, start:start + band]
+        vb = vp[:, start:start + band]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qs[:, qi], kb).float() * scale
+        qpos = start + torch.arange(q_chunk, device=q.device)
+        kpos = start - window + torch.arange(band, device=q.device)
+        mask = ((qpos[:, None] >= kpos[None, :])
+                & (qpos[:, None] - kpos[None, :] < window)
+                & (kpos[None, :] >= 0))
+        p = torch.softmax(torch.where(mask, s, _NEG), dim=-1)
+        out = torch.einsum("bhgqk,bkhd->bqhgd", p.to(q.dtype), vb)
+        blocks.append(out.reshape(b, q_chunk, hq, dv))
+    return torch.cat(blocks, dim=1)
+
+
+def _largest_chunk(n: int, target: int) -> int:
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return c
+
+
+_FLASH_THRESHOLD = 2048
+
+
+def attention_any(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The attention strategy for the shapes at hand, as the JAX package
+    picks it: dense up to ``2048^2 / 4`` scores, banded for local
+    self-attention above."""
+    sq, sk = q.shape[1], k.shape[1]
+    if sq == 1 or sq * sk <= _FLASH_THRESHOLD * _FLASH_THRESHOLD // 4:
+        return dense_attention(q, k, v, causal=causal, window=window)
+    if window > 0 and sq == sk:
+        qc = _largest_chunk(sq, min(1024, window))
+        return banded_attention(q, k, v, window=window, q_chunk=qc)
+    raise NotImplementedError(
+        f"flash attention ({sq} x {sk} scores, window {window}) is not ported "
+        "yet; it comes with the dense decoders' serving path slice of the port"
+    )
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block (params + apply), with KV cache
+# ---------------------------------------------------------------------------
+
+
+def gqa_init(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
+             device: torch.device, *, bias: bool = False) -> Params:
+    return {
+        "wq": dense_init(gen, d_model, n_heads * head_dim, device, bias=bias),
+        "wk": dense_init(gen, d_model, n_kv * head_dim, device, bias=bias),
+        "wv": dense_init(gen, d_model, n_kv * head_dim, device, bias=bias),
+        "wo": dense_init(gen, n_heads * head_dim, d_model, device,
+                         scale=0.02 / math.sqrt(2)),
+    }
+
+
+def gqa_apply(
+    p: Params,
+    x: torch.Tensor,                     # (B, S, d)
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    causal: bool = True,
+    window: int = 0,
+    rope_theta: float = 10_000.0,
+    cache: Params | None = None,         # {"k", "v", "len"} for decode
+) -> tuple[torch.Tensor, Params | None]:
+    """Self-attention with RoPE.  With a cache the new keys and values are
+    written into a copy of it (the caller's cache is left as it was), as a
+    linear buffer, or as a ring of ``window`` entries when the cache is that
+    long.  The ring refuses a multi-token write that would evict a key an
+    earlier query of the same write still needs: the JAX package computes
+    that case wrongly (ROADMAP, fault 5)."""
+    b, s, _ = x.shape
+    q = dense_apply(p["wq"], x).reshape(b, s, n_heads, head_dim)
+    k = dense_apply(p["wk"], x).reshape(b, s, n_kv, head_dim)
+    v = dense_apply(p["wv"], x).reshape(b, s, n_kv, head_dim)
+
+    new_cache = None
+    if cache is not None:
+        clen = cache["len"]
+        pos = clen + torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+        ck, cv = cache["k"].clone(), cache["v"].clone()
+        k = k.to(ck.dtype)
+        v = v.to(cv.dtype)
+        max_len = ck.shape[1]
+        if window > 0 and max_len == window:
+            if s > 1 and clen + s > window:
+                raise ValueError(
+                    f"a write of {s} tokens at length {clen} wraps the ring cache of "
+                    f"{window} entries and evicts keys its own queries need; prefill "
+                    f"at most {window - clen} tokens at once here"
+                )
+            idx = (clen + torch.arange(s, device=x.device)) % window
+            ck[:, idx] = k
+            cv[:, idx] = v
+            # unroll the ring chronologically, valid entries first
+            valid = min(clen + s, window)
+            order = (clen + s - valid + torch.arange(window, device=x.device)) % window
+            out = dense_attention(q, ck[:, order], cv[:, order], causal=True,
+                                  q_offset=valid - s, kv_len=valid)
+        else:
+            if clen + s > max_len:
+                raise ValueError(f"the cache holds {max_len} positions; "
+                                 f"{clen} + {s} do not fit")
+            ck[:, clen:clen + s] = k
+            cv[:, clen:clen + s] = v
+            out = dense_attention(q, ck, cv, causal=causal, window=window,
+                                  q_offset=clen, kv_len=clen + s)
+        new_cache = {"k": ck, "v": cv, "len": clen + s}
+    else:
+        pos = torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+        out = attention_any(q, k, v, causal=causal, window=window)
+
+    # attention over a higher-precision cache must not promote the residual
+    out = out.to(x.dtype)
+    y = dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
+    return y, new_cache
+
+
+def gqa_init_cache(b: int, max_len: int, n_kv: int, head_dim: int, *,
+                   window: int = 0, dtype: torch.dtype = torch.bfloat16,
+                   device: torch.device | None = None) -> Params:
+    """``len`` is a Python int: the host knows every write's position, so
+    no step waits on the card to read it."""
+    length = window if window > 0 else max_len
+    return {
+        "k": torch.zeros((b, length, n_kv, head_dim), dtype=dtype, device=device),
+        "v": torch.zeros((b, length, n_kv, head_dim), dtype=dtype, device=device),
+        "len": 0,
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def swiglu_init(gen, d_model: int, d_ff: int, device: torch.device) -> Params:
+    return {
+        "wi": dense_init(gen, d_model, d_ff, device),
+        "wg": dense_init(gen, d_model, d_ff, device),
+        "wo": dense_init(gen, d_ff, d_model, device, scale=0.02 / math.sqrt(2)),
+    }
+
+
+def swiglu_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return dense_apply(p["wo"], F.silu(dense_apply(p["wg"], x)) * dense_apply(p["wi"], x))

@@ -9,12 +9,13 @@ unstacks a JAX tree).
 Public API:
     init_params(cfg, generator, device)               -> params
     forward(cfg, params, batch, cache=None, ...)      -> (logits, new_cache)
-    init_cache(cfg, batch, dtype, device)             -> decode cache
+    init_cache(cfg, batch, max_len, dtype, device)    -> decode cache
     cast_params_(params, dtype)                       -> params, cast in place
     param_dtypes(params)                              -> dtypes cast_params_ sets
     param_count(cfg)                                  -> int
 
-This slice ports the rwkv6 path; any other mixer or ffn raises
+The port runs the mixers ``rwkv``, ``rglru`` and ``attn_local`` and the ffns
+``rwkv_cmix``, ``dense`` and ``none``; any other block raises
 ``NotImplementedError`` naming the slice that will port it.
 """
 
@@ -24,6 +25,7 @@ import torch
 
 from ..configs.base import Block, ModelConfig
 from ..device import resolve_device
+from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from .layers import (
     Params,
@@ -31,8 +33,13 @@ from .layers import (
     dense_init,
     embed_apply,
     embed_init,
+    gqa_apply,
+    gqa_init,
+    gqa_init_cache,
     rmsnorm_apply,
     rmsnorm_init,
+    swiglu_apply,
+    swiglu_init,
     unembed_apply,
 )
 
@@ -41,19 +48,25 @@ __all__ = [
     "param_count",
 ]
 
+_MIXERS = ("rwkv", "rglru", "attn_local")
+_FFNS = ("rwkv_cmix", "dense", "none")
 _LATER_SLICE = {
-    "rglru": "recurrentgemma-9b serving",
     "attn": "dense decoders' serving path",
-    "attn_local": "recurrentgemma-9b serving",
     "attn_cross": "MoE, MLA and cross-attention",
     "mla": "MoE, MLA and cross-attention",
-    "dense": "dense decoders' serving path",
     "moe": "MoE, MLA and cross-attention",
 }
 
-# leaves the model reads in f32 whatever the compute dtype
-# (rwkv6.py: w_base feeds the f32 decay, ln_g/ln_b the f32 group norm)
-F32_LEAVES = frozenset({"w_base", "ln_g", "ln_b"})
+# sub-trees of a layer that the model reads in f32 whatever the compute
+# dtype, so cast_params_ leaves them f32:
+# * rwkv6.py: w_base feeds the f32 decay, ln_g/ln_b the f32 group norm;
+# * rglru.py: lam feeds the f32 decay; wa/wx (weights and biases) gate the
+#   conv output, which an f32 conv window keeps f32 under bf16 compute, so
+#   the JAX package reads them in f32 when it decodes on an f32 cache.
+F32_SUBTREES = frozenset({
+    ("mixer", "w_base"), ("mixer", "ln_g"), ("mixer", "ln_b"),
+    ("mixer", "lam"), ("mixer", "wa"), ("mixer", "wx"),
+})
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -63,7 +76,7 @@ def _check_ported(cfg: ModelConfig) -> None:
             "cross-attention slice)"
         )
     for blk in cfg.block_list():
-        for part, known in ((blk.mixer, ("rwkv",)), (blk.ffn, ("rwkv_cmix", "none"))):
+        for part, known in ((blk.mixer, _MIXERS), (blk.ffn, _FFNS)):
             if part not in known:
                 slice_ = _LATER_SLICE.get(part, "a later")
                 raise NotImplementedError(
@@ -74,28 +87,61 @@ def _check_ported(cfg: ModelConfig) -> None:
 
 def _block_init(gen, cfg: ModelConfig, block: Block, device) -> Params:
     d = cfg.d_model
-    p: Params = {
-        "norm1": rmsnorm_init(d, device),
-        "mixer": rwkv_mod.rwkv_tmix_init(gen, d, device),
-    }
-    if block.ffn == "rwkv_cmix":
+    p: Params = {"norm1": rmsnorm_init(d, device)}
+    if block.mixer == "rwkv":
+        p["mixer"] = rwkv_mod.rwkv_tmix_init(gen, d, device)
+    elif block.mixer == "rglru":
+        p["mixer"] = rglru_mod.rglru_block_init(gen, d, cfg.rglru_lru_width or d, device,
+                                                cfg.rglru_conv_width)
+    else:                                                   # attn_local
+        p["mixer"] = gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                              device, bias=cfg.qkv_bias)
+    if block.ffn != "none":
         p["norm2"] = rmsnorm_init(d, device)
+    if block.ffn == "rwkv_cmix":
         p["ffn"] = rwkv_mod.rwkv_cmix_init(gen, d, cfg.d_ff, device)
+    elif block.ffn == "dense":
+        p["ffn"] = swiglu_init(gen, d, cfg.d_ff, device)
     return p
+
+
+def _block_cache(cfg: ModelConfig, block: Block, b: int, max_len: int | None,
+                 dtype: torch.dtype, device) -> Params:
+    if block.mixer == "rwkv":
+        return rwkv_mod.rwkv_init_state(b, cfg.d_model, cfg.rwkv_head_dim,
+                                        dtype=dtype, device=device)
+    if block.mixer == "rglru":
+        return rglru_mod.rglru_init_state(b, cfg.rglru_lru_width or cfg.d_model,
+                                          cfg.rglru_conv_width, dtype=dtype, device=device)
+    if max_len is None:                                     # attn_local
+        raise ValueError(f"{cfg.name} has attention blocks: init_cache needs max_len")
+    return gqa_init_cache(b, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
+                          window=min(cfg.local_window, max_len), dtype=dtype, device=device)
 
 
 def _block_apply(cfg: ModelConfig, block: Block, p: Params, x: torch.Tensor,
                  cache: Params | None):
     h = rmsnorm_apply(p["norm1"], x, eps=cfg.norm_eps)
-    y, new_t = rwkv_mod.rwkv_tmix_apply(
-        p["mixer"], h, head_dim=cfg.rwkv_head_dim,
-        state=cache["tmix"] if cache is not None else None,
-    )
+    if block.mixer == "rwkv":
+        y, new_t = rwkv_mod.rwkv_tmix_apply(
+            p["mixer"], h, head_dim=cfg.rwkv_head_dim,
+            state=cache["tmix"] if cache is not None else None,
+        )
+        new_cache = None if cache is None else dict(cache, tmix=new_t)
+    elif block.mixer == "rglru":
+        y, new_cache = rglru_mod.rglru_block_apply(p["mixer"], h, state=cache)
+    else:                                                   # attn_local
+        y, new_cache = gqa_apply(
+            p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.resolved_head_dim, causal=cfg.causal, window=cfg.local_window,
+            rope_theta=cfg.rope_theta, cache=cache,
+        )
     x = x + y
-    new_cache = None if cache is None else dict(cache, tmix=new_t)
     if block.ffn == "none":
         return x, new_cache
     h2 = rmsnorm_apply(p["norm2"], x, eps=cfg.norm_eps)
+    if block.ffn == "dense":
+        return x + swiglu_apply(p["ffn"], h2), new_cache
     # the cmix shift is carried only behind an rwkv mixer (model.py:188)
     carry = cache is not None and block.mixer == "rwkv"
     y2, new_c = rwkv_mod.rwkv_cmix_apply(
@@ -125,19 +171,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
     return params
 
 
-def init_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.bfloat16,
+def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
+               dtype: torch.dtype = torch.bfloat16,
                device: str | torch.device | None = None) -> Params:
-    """Decode cache, one entry per layer.  rwkv state is O(1) in length, so
-    unlike the JAX ``init_cache`` it takes no ``max_len``."""
+    """Decode cache, one entry per layer.  ``max_len`` sizes the attention
+    caches: a local-attention cache holds ``min(local_window, max_len)``
+    positions, a ring when that is the window.  Recurrent state is O(1) in
+    length, so a model without attention blocks may leave it out."""
     _check_ported(cfg)
     device = resolve_device(device)
-    return {
-        "layers": [
-            rwkv_mod.rwkv_init_state(batch, cfg.d_model, cfg.rwkv_head_dim,
-                                     dtype=dtype, device=device)
-            for _ in cfg.block_list()
-        ]
-    }
+    return {"layers": [_block_cache(cfg, b, batch, max_len, dtype, device)
+                       for b in cfg.block_list()]}
 
 
 def forward(
@@ -165,30 +209,38 @@ def forward(
     return logits, ({"layers": new_layers} if cache is not None else None)
 
 
-def cast_params_(params: Params, dtype: torch.dtype) -> Params:
-    """Cast every leaf to ``dtype`` in place, leaf by leaf, except those the
-    model reads in f32.  ``forward`` casts weights to the compute dtype on
-    every call (as the JAX ``dense_apply`` does); casting once gives the same
-    numbers and leaves one serving copy on the card, never two."""
-    items = params.items() if isinstance(params, dict) else enumerate(params)
+def _leaves(tree, path: tuple = ()):
+    """``(container, key, path)`` of every tensor leaf."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     for key, leaf in list(items):
         if isinstance(leaf, (dict, list)):
-            cast_params_(leaf, dtype)
-        elif key not in F32_LEAVES:
-            params[key] = leaf.to(dtype)
+            yield from _leaves(leaf, path + (key,))
+        else:
+            yield tree, key, path + (key,)
+
+
+def _kept_f32(path: tuple) -> bool:
+    """Whether the leaf at ``path`` lies in one of ``F32_SUBTREES`` of a
+    layer (``("layers", i, "mixer", "wa", "w")`` does)."""
+    inner = path[2:] if path[:1] == ("layers",) else ()
+    return any(inner[:len(sub)] == sub for sub in F32_SUBTREES)
+
+
+def cast_params_(params: Params, dtype: torch.dtype) -> Params:
+    """Cast every leaf to ``dtype`` in place, leaf by leaf, except those the
+    model reads in f32 (``F32_SUBTREES``).  ``forward`` casts weights to the
+    compute dtype on every call (as the JAX ``dense_apply`` does); casting
+    once gives the same numbers and leaves one serving copy on the card,
+    never two."""
+    for tree, key, path in _leaves(params):
+        if not _kept_f32(path):
+            tree[key] = tree[key].to(dtype)
     return params
 
 
 def param_dtypes(params: Params) -> set[torch.dtype]:
     """The dtypes of the leaves ``cast_params_`` casts (all but the f32 ones)."""
-    items = params.items() if isinstance(params, dict) else enumerate(params)
-    out: set[torch.dtype] = set()
-    for key, leaf in items:
-        if isinstance(leaf, (dict, list)):
-            out |= param_dtypes(leaf)
-        elif key not in F32_LEAVES:
-            out.add(leaf.dtype)
-    return out
+    return {tree[key].dtype for tree, key, path in _leaves(params) if not _kept_f32(path)}
 
 
 def param_count(cfg: ModelConfig) -> int:

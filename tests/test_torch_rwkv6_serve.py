@@ -215,11 +215,13 @@ def test_param_count_matches_jax(full):
 
 
 def test_registry_matches_jax_and_refuses_unknown_arch():
-    assert ARCHS == ("rwkv6-7b",)
-    for get, jax_get in ((get_config, jax_get_config), (get_smoke_config, jax_get_smoke_config)):
-        ours, theirs = dataclasses.asdict(get(ARCH)), dataclasses.asdict(jax_get(ARCH))
-        for name, value in ours.items():
-            assert value == theirs[name], name
+    assert ARCHS == ("rwkv6-7b", "recurrentgemma-9b")
+    for arch in ARCHS:
+        for get, jax_get in ((get_config, jax_get_config),
+                             (get_smoke_config, jax_get_smoke_config)):
+            ours, theirs = dataclasses.asdict(get(arch)), dataclasses.asdict(jax_get(arch))
+            for name, value in ours.items():
+                assert value == theirs[name], (arch, name)
     with pytest.raises(KeyError, match="rwkv6-7b"):
         get_config("minitron-8b")
 
@@ -228,9 +230,10 @@ def test_unported_blocks_name_their_slice():
     cfg = dataclasses.replace(get_smoke_config(ARCH), blocks_pattern=(Block("attn", "dense"),))
     with pytest.raises(NotImplementedError, match="dense decoders"):
         model.init_params(cfg, None, "meta")
-    cfg = dataclasses.replace(get_smoke_config(ARCH), blocks_pattern=(Block("rglru", "dense"),))
-    with pytest.raises(NotImplementedError, match="recurrentgemma-9b"):
-        model.param_count(cfg)
+    for block in (Block("mla", "dense"), Block("rglru", "moe"), Block("attn_cross", "dense")):
+        cfg = dataclasses.replace(get_smoke_config(ARCH), blocks_pattern=(block,))
+        with pytest.raises(NotImplementedError, match="MoE, MLA and cross-attention"):
+            model.param_count(cfg)
 
 
 def test_entry_points_default_to_cuda():
@@ -286,7 +289,7 @@ def test_chip_smoke_decode_gate_catches_cache_faults(fault, monkeypatch):
     else:
         assert not over, rows
     # the script's own fault: a zeroed state fed to each decode step
-    zeroed = chip_smoke.decode_vs_full(cfg, params, seq, torch.float32, full, zero_state=True)
+    zeroed = chip_smoke.decode_vs_full(cfg, params, seq, torch.float32, full, zero=("s",))
     assert max(err for _, err in zeroed) > limit
 
 
