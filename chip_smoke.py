@@ -10,7 +10,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    source, all started together;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with its CUDA-graph device time, its bound and the plain
-   time;
+   time; the white-data filter and the CRDT merge also at small odd shapes,
+   bit for bit;
 4. rwkv6-7b at full width and depth, on its f32 weights: prefill + stepwise
    decode against the full forward, in f32 and bf16 compute, each decode
    position gated against a multiple of the noise floor measured in the same
@@ -26,10 +27,20 @@ Phases, each of which fails the run (nonzero exit, no result line):
    never reaches: batch 2, a prompt of exactly the window (2048), 8 decode
    steps that wrap the ring, against the full forward (banded attention),
    f32, all 38 layers, gated as in phase 6;
-8. recurrentgemma-9b served as in phase 5.
+8. recurrentgemma-9b served as in phase 5;
+9. ``filter_gradient`` (the white-data filter) over one device's share of
+   the rwkv6-7b gradient: the embedding, lm_head, final norm and 6 of the 32
+   blocks (129 leaves, 1,853,681,664 elements), two rounds of error
+   feedback, f32 g and r, then bf16 g and f32 r, each leaf bit-exact
+   against the plain version; the tree's device time against its bound;
+10. ``crdt_merge_many`` over three replicas of a YCSB table (10,000,000
+   records of 10 fields x 100 bytes, held as 250 int32 words, int32
+   versions), bit-exact against the plain fold, ACI at full size, and one
+   merge's device time against its bound.
 
 The rwkv6-7b weights are released before recurrentgemma-9b's are drawn: the
-two would not fit on one 80 GB card together.
+two would not fit on one 80 GB card together.  Phases 9 and 10 start on an
+empty card, after recurrentgemma-9b's weights are released.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -88,6 +99,19 @@ RWKV_FAULTS = {"a zeroed WKV state": ("s",)}
 RG_FAULTS = {"a zeroed RG-LRU state (h, conv)": ("h", "conv"),
              "a zeroed attention KV cache": ("k", "v")}
 GEMM_KERNEL_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
+
+# phase 9: the gradient tree one device holds when the rwkv6-7b trainer
+# shards it over data x model = 2 x 2 (7.56e9 / 4 = 1.89e9 elements).  Cut to
+# 6 of the 32 blocks: the reference's stats["total"] is int32, which holds
+# 7 blocks at most, and four f32 trees of the whole model would take 121 GB.
+FILTER_BLOCKS = 6
+TAU = 1.6449        # keeps 10% of N(0, 1): the reference's SyncConfig.density
+# phase 10: YCSB's CoreWorkload record (fieldcount=10 x fieldlength=100 =
+# 1,000 bytes, 250 int32 words), 10M records, replication factor 3; ~1% of
+# the rows tie on the top version with different payloads
+YCSB_ROWS, YCSB_WORDS, REPLICAS = 10_000_000, 250, 3
+TIE_SHARE = 0.01
+MERGE_CHUNK = 1_000_000
 
 
 def fail(msg: str) -> None:
@@ -214,13 +238,16 @@ def check_close(name: str, got, want, tol: float) -> float:
     return err
 
 
-def time_kernel(name, kernel, plain, make_inputs, shape, input_bytes, bound) -> dict:
+def time_kernel(name, kernel, plain, make_inputs, shape, input_bytes, bound,
+                n_sets: int | None = None) -> dict:
     """Device time of ``kernel`` at ``shape`` from a CUDA-graph replay that
     cycles enough input sets (at least 12, and at least twice the 50 MB L2)
     that the L2 cannot hold them from one call to the next, as on the main
     path, whose layers each bring their own inputs; the plain version's
-    device time and one eager call's time beside it."""
-    n_sets = max(12, -(-2 * L2_BYTES // input_bytes(*shape)))
+    device time and one eager call's time beside it.  ``n_sets`` overrides
+    the count where one set is far beyond the L2 and twelve would not fit."""
+    if n_sets is None:
+        n_sets = max(12, -(-2 * L2_BYTES // input_bytes(*shape)))
     sets = [make_inputs(*shape) for _ in range(n_sets)]
     ms = device_ms([functools.partial(kernel, *s) for s in sets])
     plain_ms = device_ms([functools.partial(plain, *sets[0])], reps=3)
@@ -233,8 +260,10 @@ def time_kernel(name, kernel, plain, make_inputs, shape, input_bytes, bound) -> 
             "bound_by": bound_by, "eager_call_ms": eager_ms}
 
 
-def kernel_entry(name: str, source: str, replaces: str, errs: list, timings: dict) -> dict:
-    pre = timings["prefill"]
+def kernel_entry(name: str, source: str, replaces: str, errs: list, main: dict,
+                 library_ms: float | None = None, **extra) -> dict:
+    """The kernel's line of the JSON summary: ``main`` is its timing at the
+    main path's shape; ``extra`` carries its timings at other shapes."""
     return {
         "name": name,
         "route": "cuda",
@@ -242,13 +271,13 @@ def kernel_entry(name: str, source: str, replaces: str, errs: list, timings: dic
         "replaces": replaces,
         "launches": None,          # filled in by the main path's run
         "max_abs_err": max(errs),
-        "ms": pre["ms"],
-        "plain_ms": pre["plain_ms"],
-        "bound_ms": pre["bound_ms"],
-        "bound_by": pre["bound_by"],
-        "library_ms": None,
-        "shape": pre["shape"],
-        "decode": timings["decode"],
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"],
+        "library_ms": library_ms,
+        "shape": main["shape"],
+        **extra,
     }
 
 
@@ -289,7 +318,8 @@ def phase_wkv6(ops, wkv6_ref) -> dict:
     errs.append(check_close("wkv6 continuation y", torch.cat([y1, y2], 1), y_ref, WKV6_TOL))
     errs.append(check_close("wkv6 continuation state", s2, s_ref, WKV6_TOL))
     return kernel_entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
-                        "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:28", errs, timings)
+                        "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:28", errs, timings["prefill"],
+                        decode=timings["decode"])
 
 
 def phase_rglru(ops, rglru_scan_ref) -> dict:
@@ -324,7 +354,91 @@ def phase_rglru(ops, rglru_scan_ref) -> dict:
                             RGLRU_TOL))
     errs.append(check_close("rglru_scan continuation h_T", last2, last_ref, RGLRU_TOL))
     return kernel_entry("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
-                        "src/repro/kernels/rglru_scan/rglru_scan.py:27", errs, timings)
+                        "src/repro/kernels/rglru_scan/rglru_scan.py:27", errs, timings["prefill"],
+                        decode=timings["decode"])
+
+
+def same_bits(name: str, got, want) -> float:
+    """Fail unless ``got`` and ``want`` hold the same dtype, shape and bits
+    (a NaN equals a NaN of the same bits); 0.0, the error of a bit-exact
+    result."""
+    import torch
+
+    def bits(x):
+        return x.reshape(-1).view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{name}: {got.dtype} {tuple(got.shape)} vs plain {want.dtype} {tuple(want.shape)}")
+    if not torch.equal(bits(got), bits(want)):
+        n = int((bits(got) != bits(want)).sum())
+        fail(f"{name}: {n} of {got.numel()} elements differ from the plain version in their bits")
+    return 0.0
+
+
+def filter_bound(n: int, g_size: int, r_size: int) -> tuple[float, str]:
+    """Least time for the filter over n elements: g and r read once, send and
+    new_r written once; one add and one compare per element."""
+    return _bound(2 * n * (g_size + r_size), 2 * n)
+
+
+def merge_bound(m: int, n: int, size: int) -> tuple[float, str]:
+    """Least time for one merge of (m, n) payloads: the winner's row read
+    once (the function needs no more), both version vectors read, the
+    payload and out_ver written; one compare per row."""
+    return _bound(2 * m * n * size + 3 * 4 * m, m)
+
+
+def phase_filter_small(ops, ref, dev) -> list:
+    """The white-data filter vs plain at small odd shapes, every tau of
+    note (0 and -1 keep all, inf keeps none) and a NaN input, bit for bit."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    dtypes = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32)]
+    errs, cases = [], 0
+    for shape in [(1000,), (3, 5, 7), (129,)]:
+        for g_dt, r_dt in dtypes:
+            g = torch.randn(shape, generator=gen, device=dev)
+            g.view(-1)[::97] = float("nan")
+            g, r = g.to(g_dt), (torch.randn(shape, generator=gen, device=dev) * 0.5).to(r_dt)
+            for tau in (0.0, -1.0, TAU, float("inf")):
+                got, want = ops.whitedata_filter(g, r, tau), ref(g, r, tau)
+                for part, a, b in zip(("send", "new_r", "kept"), got, want):
+                    errs.append(same_bits(f"whitedata_filter {shape} {g_dt}/{r_dt} tau {tau} "
+                                          f"{part}", a, b))
+                cases += 1
+    print(f"  whitedata_filter: {cases} cases at (1000,), (3, 5, 7), (129,), f32/bf16 g and r, "
+          "tau in {0, -1, 1.6449, inf}, NaN inputs: bit-exact")
+    return errs
+
+
+def merge_payload(gen, m: int, n: int, dtype):
+    import torch
+
+    if dtype == torch.int32:
+        return torch.randint(-2**31, 2**31 - 1, (m, n), generator=gen, device=gen.device,
+                             dtype=torch.int32)
+    return torch.randn((m, n), generator=gen, device=gen.device).to(dtype)
+
+
+def phase_merge_small(ops, ref, dev) -> list:
+    """The CRDT merge vs plain at small shapes and one of 65536 rows, in
+    every payload dtype, bit for bit."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = []
+    for m, n in [(7, 250), (64, 100), (65536, 256)]:
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            va, vb = (merge_payload(gen, m, n, dt) for _ in range(2))
+            ra, rb = (torch.randint(0, 8, (m,), generator=gen, device=dev, dtype=torch.int32)
+                      for _ in range(2))
+            (ov, orr), (wv, wr) = ops.crdt_merge(va, ra, vb, rb), ref(va, ra, vb, rb)
+            errs.append(same_bits(f"crdt_merge ({m}, {n}) {dt} values", ov, wv))
+            errs.append(same_bits(f"crdt_merge ({m}, {n}) {dt} versions", orr, wr))
+    print("  crdt_merge: (7, 250), (64, 100), (65536, 256) in f32, bf16 and int32: bit-exact")
+    return errs
 
 
 def profile_device(label: str, run, n_runs: int,
@@ -554,7 +668,7 @@ def run_rwkv6(dev, tcfg, counters) -> dict:
               f"{cfg.n_layers} layers, {cdt} compute ({tcfg.param_dtype} weights)")
         check_decode(cfg, params, seq, cdt, CHECK_PROMPT, RWKV_FAULTS)
     return phase_serve("[5]", cfg, params, tcfg, dev, counters,
-                       {"wkv6": cfg.n_layers * GEN_LEN, "rglru_scan": 0})
+                       {name: 0 for name in counters} | {"wkv6": cfg.n_layers * GEN_LEN})
 
 
 def run_recurrentgemma(dev, tcfg, counters) -> dict:
@@ -596,7 +710,291 @@ def run_recurrentgemma(dev, tcfg, counters) -> dict:
 
     # ---- 8. main path
     return phase_serve("[8]", cfg, params, tcfg, dev, counters,
-                       {"wkv6": 0, "rglru_scan": n_rglru * GEN_LEN})
+                       {name: 0 for name in counters} | {"rglru_scan": n_rglru * GEN_LEN})
+
+
+def memory_line(tag: str, when: str) -> None:
+    import torch
+
+    if when == "start":
+        torch.cuda.reset_peak_memory_stats()
+        print(f"{tag} device memory at the start: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              "allocated")
+    else:
+        print(f"{tag} peak device memory: {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def card_state(tag: str) -> None:
+    """The card's clocks, power draw and temperature, beside a timing."""
+    state = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"{tag} card before the timings (SM clock, memory clock, power draw, "
+          f"temperature): {state}")
+
+
+def gradient_shapes():
+    """The shapes of one device's share of the rwkv6-7b gradient (meta
+    tensors): embedding, lm_head, final norm and the first FILTER_BLOCKS
+    blocks, in the order of the port's parameter tree."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import init_params
+
+    tree = init_params(get_config(RWKV), None, "meta")
+    tree["layers"] = tree["layers"][:FILTER_BLOCKS]
+    return tree
+
+
+def map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def check_filter_round(label: str, ref, g, r, send, new_r, stats, exact_sum: bool) -> float:
+    """Each leaf of a filter_gradient call bit-exact against the plain
+    version, one leaf at a time so the plain version never doubles the
+    memory; the stats against the sum of the plain counts; with
+    ``exact_sum`` (f32 g and r) send + new_r == g + r.  Returns the density."""
+    import torch
+
+    leaves = [_tensors(t) for t in (g, r, send, new_r)]
+    kept = total = 0
+    for i, (gl, rl, sl, nl) in enumerate(zip(*leaves)):
+        ws, wr, wk = ref(gl, rl, TAU)
+        same_bits(f"{label} leaf {i} send", sl, ws)
+        same_bits(f"{label} leaf {i} new_r", nl, wr)
+        if exact_sum and not torch.equal(sl + nl, gl + rl):
+            fail(f"{label} leaf {i}: send + new_r != g + r")
+        kept += int(wk)
+        total += gl.numel()
+        del ws, wr, wk
+    density = torch.tensor(kept, dtype=torch.float32) / torch.tensor(total, dtype=torch.float32)
+    got = {k: v.cpu() for k, v in stats.items()}
+    want = {"kept": torch.tensor(kept, dtype=torch.int32),
+            "total": torch.tensor(total, dtype=torch.int32), "density": density}
+    for key in want:
+        if got[key].dtype != want[key].dtype or not torch.equal(got[key], want[key]):
+            fail(f"{label}: stats[{key!r}] {got[key]} vs the plain counts' {want[key]}")
+    return float(density)
+
+
+def run_filter(ops, ref, counters: dict, shapes, dev) -> dict:
+    """Phase 9: filter_gradient over the tree of ``shapes``, two rounds of
+    error feedback, f32 g and r, then bf16 g and f32 r.  Each dtype's two
+    calls are the main path, with every kernel's count set to 0 just before
+    and read just after; then the whole call's device time from a CUDA graph
+    of its launches, one eager call's wall time, the plain version's device
+    time over the tree, and the kernel at a block's largest leaf."""
+    import torch
+
+    memory_line("[9]", "start")
+    leaves = _tensors(shapes)
+    n = sum(x.numel() for x in leaves)
+    print(f"[9] filter_gradient over {len(leaves)} leaves, {n:,} elements (reduced: the "
+          f"embedding, lm_head, final norm and {FILTER_BLOCKS} of the 32 blocks of {RWKV}, "
+          f"about one device's share at data x model = 2 x 2; stats['total'] is int32), "
+          f"tau {TAU}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    launches = {name: 0 for name in counters}
+    timings = {}
+    for label, g_dt in (("f32", torch.float32), ("bf16 g", torch.bfloat16)):
+        r = map_tree(shapes, lambda x: torch.zeros(x.shape, device=dev))
+        for fn in counters.values():
+            fn.launches = 0
+        for rnd in (1, 2):
+            g = map_tree(shapes, lambda x, dt=g_dt: torch.randn(
+                x.shape, generator=gen, device=dev, dtype=dt))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            send, new_r, stats = ops.filter_gradient(g, r, TAU)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            density = check_filter_round(f"filter {label} round {rnd}", ref, g, r, send, new_r,
+                                         stats, exact_sum=g_dt == torch.float32)
+            print(f"  {label} round {rnd}: density {density:.6f} ({int(stats['kept']):,} kept), "
+                  f"{wall:.2f} ms wall, bit-exact leaf by leaf"
+                  + (", send + new_r == g + r" if g_dt == torch.float32 else ""))
+            if rnd == 1:
+                del g, send, r, stats
+                r = new_r
+            del new_r
+        counts = {name: fn.launches for name, fn in counters.items()}
+        expected = {name: 0 for name in counters} | {"whitedata_filter": 2 * len(leaves)}
+        if counts != expected:
+            fail(f"filter {label}: kernel launches {counts}, expected {expected}")
+        print(f"  {label}: kernel launches over the two calls {counts}")
+        for name in counters:
+            launches[name] += counts[name]
+
+        # ---- timings, outside the counted run, on round 2's inputs
+        del send
+        torch.cuda.empty_cache()
+        card_state("  ")
+        bound_ms, bound_by = filter_bound(n, g_dt.itemsize, 4)
+        ms = device_ms([lambda: ops.filter_gradient(g, r, TAU)])
+        torch.cuda.empty_cache()
+
+        def plain_tree():
+            for gl, rl in zip(_tensors(g), _tensors(r)):
+                ref(gl, rl, TAU)
+
+        plain_ms = device_ms([plain_tree], reps=3)
+        torch.cuda.empty_cache()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.filter_gradient(g, r, TAU)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        eager_ms = statistics.median(walls)
+        print(f"  {label} tree: {ms:.4f} ms on the device ({len(leaves)} launches in one CUDA "
+              f"graph), {eager_ms:.3f} ms per eager call (wall), plain {plain_ms:.3f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
+        del g, r
+        torch.cuda.empty_cache()
+
+        def leaf_inputs(*shape, dt=g_dt):
+            return (torch.randn(shape, generator=gen, device=dev, dtype=dt),
+                    torch.randn(shape, generator=gen, device=dev) * 0.5)
+
+        block = time_kernel(
+            f"whitedata_filter {label} leaf", lambda a, b: ops.whitedata_filter(a, b, TAU),
+            lambda a, b: ref(a, b, TAU), leaf_inputs, (4096, 14336),
+            lambda *sh, dt=g_dt: (dt.itemsize + 4) * sh[0] * sh[1],
+            lambda *sh, dt=g_dt: filter_bound(sh[0] * sh[1], dt.itemsize, 4))
+        a, b = leaf_inputs(4096, 14336)
+        for part, x, y in zip(("send", "new_r", "kept"), ops.whitedata_filter(a, b, TAU),
+                              ref(a, b, TAU)):
+            same_bits(f"whitedata_filter {label} leaf {part}", x, y)
+        del a, b
+        torch.cuda.empty_cache()
+        timings[label] = {"shape": f"{RWKV} gradient tree, {FILTER_BLOCKS} of 32 blocks: "
+                                   f"{len(leaves)} leaves, {n:,} elements, {label}",
+                          "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": bound_by, "eager_call_ms": eager_ms, "block_leaf": block}
+    memory_line("[9]", "end")
+    return {"launches": launches, "timings": timings}
+
+
+def ycsb_replicas(dev, rows: int, words: int):
+    """REPLICAS batches of (rows, words) int32 payloads with int32 versions,
+    from seed 0 on ``dev``: each row's top version lies on a replica drawn
+    uniformly, the others below it, and on ~TIE_SHARE of the rows the next
+    replica ties on the top with a different payload.  Returns the batches
+    and the versions (REPLICAS, rows)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vals = [merge_payload(gen, rows, words, torch.int32) for _ in range(REPLICAS)]
+    kw = dict(generator=gen, device=dev)
+    winner = torch.randint(0, REPLICAS, (1, rows), **kw)
+    top = torch.randint(1000, 2**30, (1, rows), **kw, dtype=torch.int32)
+    vers = top - torch.randint(1, 1000, (REPLICAS, rows), **kw, dtype=torch.int32)
+    vers.scatter_(0, winner, top)
+    tie = torch.rand((1, rows), **kw) < TIE_SHARE
+    second = (winner + 1) % REPLICAS
+    vers.scatter_(0, second, torch.where(tie, top, vers.gather(0, second)))
+    return [(vals[i], vers[i]) for i in range(REPLICAS)], vers
+
+
+def run_merge(ops, ref, counters: dict, dev, rows: int = YCSB_ROWS,
+              words: int = YCSB_WORDS, chunk: int = MERGE_CHUNK) -> dict:
+    """Phase 10: crdt_merge_many over REPLICAS replicas of a YCSB table, with
+    every kernel's count set to 0 just before and read just after; bit-exact
+    against the plain fold one chunk of rows at a time; ACI at full size;
+    one merge's device time against its bound."""
+    import torch
+
+    memory_line("[10]", "start")
+    batches, vers = ycsb_replicas(dev, rows, words)
+    top = vers.max(dim=0).values
+    at_top = vers == top
+    unique = at_top.sum(dim=0) == 1
+    print(f"[10] crdt_merge_many over {REPLICAS} replicas of {rows:,} YCSB records "
+          f"({words} int32 words = {4 * words} bytes each, int32 versions; "
+          f"{REPLICAS * rows * (4 * words + 4) / 1e9:.2f} GB); rows on top per replica "
+          + ", ".join(f"{int(x):,}" for x in at_top.sum(dim=1))
+          + f"; {rows - int(unique.sum()):,} rows tie on the top version")
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_val, out_ver = ops.crdt_merge_many(batches)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {name: fn.launches for name, fn in counters.items()}
+    expected = {name: 0 for name in counters} | {"crdt_merge": REPLICAS - 1}
+    if launches != expected:
+        fail(f"crdt_merge_many: kernel launches {launches}, expected {expected}")
+    print(f"  main call: {wall:.2f} ms wall, kernel launches {launches}")
+
+    for lo in range(0, rows, chunk):
+        sl = slice(lo, lo + chunk)
+        want_val, want_ver = batches[0][0][sl], batches[0][1][sl]
+        for vb, rb in batches[1:]:
+            want_val, want_ver = ref(want_val, want_ver, vb[sl], rb[sl])
+        same_bits(f"crdt_merge_many rows {lo}+ values", out_val[sl], want_val)
+        same_bits(f"crdt_merge_many rows {lo}+ versions", out_ver[sl], want_ver)
+    del want_val, want_ver
+    print(f"  bit-exact against the plain fold, {chunk:,} rows at a time")
+
+    # ---- ACI at full size
+    rev_val, rev_ver = ops.crdt_merge_many(batches[::-1])
+    if not torch.equal(rev_ver, out_ver):
+        fail("crdt_merge_many: the reversed order gives other versions")
+    differ = 0
+    for lo in range(0, rows, chunk):
+        sl = slice(lo, lo + chunk)
+        rows_differ = (rev_val[sl] != out_val[sl]).any(dim=1)
+        if (rows_differ & unique[sl]).any():
+            fail(f"crdt_merge_many: the reversed order differs on a row with a unique top "
+                 f"version (rows {lo}+)")
+        differ += int(rows_differ.sum())
+    del rev_val, rev_ver
+    if not 0 < differ <= rows - int(unique.sum()):
+        fail(f"crdt_merge_many: {differ} rows differ in reversed order, expected the tied rows")
+    same_val, same_ver = ops.crdt_merge(out_val, out_ver, out_val, out_ver)
+    if not (torch.equal(same_val, out_val) and torch.equal(same_ver, out_ver)):
+        fail("crdt_merge(x, x) != x")
+    del same_val, same_ver
+    dup_val, dup_ver = ops.crdt_merge_many(batches + [batches[0]])
+    if not (torch.equal(dup_val, out_val) and torch.equal(dup_ver, out_ver)):
+        fail("crdt_merge_many: a duplicated batch changed the result")
+    del dup_val, dup_ver, out_val, out_ver
+    print(f"  ACI: reversed order equal versions, equal payloads on every row with a unique "
+          f"top ({differ:,} tied rows keep their first batch's payload); merge(x, x) == x; a "
+          f"duplicated batch changes nothing")
+
+    # ---- one merge's device time, outside the counted run
+    torch.cuda.empty_cache()
+    card_state("  ")
+    (va, ra), (vb, rb) = batches[0], batches[1]
+    main = time_kernel("crdt_merge", ops.crdt_merge, ref, lambda *shape: (va, ra, vb, rb),
+                       (rows, words), lambda m, n: 2 * (4 * m * n + 4 * m),
+                       lambda m, n: merge_bound(m, n, 4), n_sets=1)
+    both_sides = (2 * rows * words * 4 + 12 * rows) / (3 * rows * words * 4 + 12 * rows)
+    print(f"  one input set ({2 * (4 * rows * words + 4 * rows) / 1e9:.2f} GB, "
+          f"{2 * (4 * rows * words + 4 * rows) / L2_BYTES:.0f}x the L2); the bound counts the "
+          f"winner's payload only: a kernel that reads both sides is held to "
+          f"{both_sides:.1%} of it; library_ms = plain_ms (torch.where + torch.maximum)")
+    dst = torch.empty_like(va)
+    copy_ms = device_ms([lambda: dst.copy_(va)])
+    nbytes = 2 * va.numel() * va.element_size()
+    print(f"  the card's copy rate on the same bytes (torch copy_ of one replica's payload, "
+          f"{nbytes / 1e9:.2f} GB read + written): {copy_ms:.4f} ms, "
+          f"{nbytes / copy_ms / 1e9:.3f} TB/s, {nbytes / HBM_BYTES_PER_S * 1e3 / copy_ms:.1%} of "
+          f"{HBM_BYTES_PER_S / 1e12:g} TB/s; the merge moves its "
+          f"{main['bound_ms'] * HBM_BYTES_PER_S / 1e12:.2f} GB at "
+          f"{main['bound_ms'] * HBM_BYTES_PER_S / main['ms'] / 1e12:.3f} TB/s")
+    main["copy_ms"] = copy_ms
+    del batches, vers, va, vb, ra, rb, dst
+    torch.cuda.empty_cache()
+    memory_line("[10]", "end")
+    return {"launches": launches, "wall_ms": wall, "main": main}
 
 
 def build_all(_build) -> None:
@@ -623,10 +1021,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script runs only on the card")
     from repro_torch.kernels import _build
+    from repro_torch.kernels.crdt_merge import ops as merge_ops
+    from repro_torch.kernels.crdt_merge.ref import crdt_merge_ref
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
     from repro_torch.kernels.rwkv6_wkv import ops as wkv6_ops
     from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
+    from repro_torch.kernels.whitedata_filter import ops as filter_ops
+    from repro_torch.kernels.whitedata_filter.ref import whitedata_filter_ref
     from repro_torch.train.train_step import TrainConfig
 
     smi = subprocess.run(
@@ -647,7 +1049,11 @@ def main() -> None:
     print("[3] kernels vs plain PyTorch on the card")
     entries = {"wkv6": phase_wkv6(wkv6_ops, wkv6_ref),
                "rglru_scan": phase_rglru(rglru_ops, rglru_scan_ref)}
-    counters = {"wkv6": wkv6_ops.wkv6, "rglru_scan": rglru_ops.rglru_scan}
+    filter_errs = phase_filter_small(filter_ops, whitedata_filter_ref, dev)
+    merge_errs = phase_merge_small(merge_ops, crdt_merge_ref, dev)
+    counters = {"wkv6": wkv6_ops.wkv6, "rglru_scan": rglru_ops.rglru_scan,
+                "whitedata_filter": filter_ops.whitedata_filter,
+                "crdt_merge": merge_ops.crdt_merge}
 
     tcfg = TrainConfig()
     entries["wkv6"]["launches"] = run_rwkv6(dev, tcfg, counters)["wkv6"]
@@ -655,6 +1061,29 @@ def main() -> None:
     print(f"  released the {RWKV} weights: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           "still allocated")
     entries["rglru_scan"]["launches"] = run_recurrentgemma(dev, tcfg, counters)["rglru_scan"]
+    torch.cuda.empty_cache()
+    print(f"  released the {RG} weights: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          "still allocated")
+
+    # ---- 9. the white-data filter over a gradient tree
+    t_phase = time.perf_counter()
+    filt = run_filter(filter_ops, whitedata_filter_ref, counters, gradient_shapes(), dev)
+    print(f"[9] took {time.perf_counter() - t_phase:.1f} s")
+    entries["whitedata_filter"] = kernel_entry(
+        "whitedata_filter", "src/repro_torch/csrc/whitedata_filter.cu",
+        "src/repro/kernels/whitedata_filter/whitedata_filter.py:24", filter_errs,
+        filt["timings"]["f32"], bf16_g=filt["timings"]["bf16 g"])
+    entries["whitedata_filter"]["launches"] = filt["launches"]["whitedata_filter"]
+
+    # ---- 10. the CRDT merge over three replicas of a YCSB table
+    t_phase = time.perf_counter()
+    merge = run_merge(merge_ops, crdt_merge_ref, counters, dev)
+    print(f"[10] took {time.perf_counter() - t_phase:.1f} s")
+    entries["crdt_merge"] = kernel_entry(
+        "crdt_merge", "src/repro_torch/csrc/crdt_merge.cu",
+        "src/repro/kernels/crdt_merge/crdt_merge.py:24", merge_errs, merge["main"],
+        library_ms=merge["main"]["plain_ms"])
+    entries["crdt_merge"]["launches"] = merge["launches"]["crdt_merge"]
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

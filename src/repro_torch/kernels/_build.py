@@ -23,7 +23,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 # library name -> source under csrc/
-SOURCES: dict[str, str] = {"wkv6": "wkv6.cu", "rglru_scan": "rglru_scan.cu"}
+SOURCES: dict[str, str] = {
+    "wkv6": "wkv6.cu",
+    "rglru_scan": "rglru_scan.cu",
+    "whitedata_filter": "whitedata_filter.cu",
+    "crdt_merge": "crdt_merge.cu",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
