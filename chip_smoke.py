@@ -10,8 +10,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    source, all started together;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes, with its CUDA-graph device time, its bound and the plain
-   time; the white-data filter and the CRDT merge also at small odd shapes,
-   bit for bit;
+   time; WKV6 also with w over [0, 1) holding zeros, and at a ragged
+   T = 513, and its time at 1-4 heads per SM with the SM clock and power
+   draw under that load; the white-data filter and the CRDT merge also at
+   small odd shapes, bit for bit;
 4. rwkv6-7b at full width and depth, on its f32 weights: prefill + stepwise
    decode against the full forward, in f32 and bf16 compute, each decode
    position gated against a multiple of the noise floor measured in the same
@@ -202,14 +204,21 @@ def rglru_bound(b: int, t: int, d: int) -> tuple[float, str]:
     return _bound(nbytes, 2 * b * t * d)
 
 
-def wkv6_inputs(gen, b, t, h, n, *, zero_state: bool):
+def wkv6_inputs(gen, b, t, h, n, *, zero_state: bool, w_zeros: bool = False):
+    """r, k, v ~ N(0, 1), w over [0.6, 0.999); with ``w_zeros`` w over
+    [0, 1) with every 7th element 0 and every 11th 1e-35."""
     import torch
 
     def mk():
         return torch.randn((b, t, h, n), generator=gen, device="cuda")
 
     r, k, v = mk(), mk(), mk()
-    w = torch.rand((b, t, h, n), generator=gen, device="cuda") * 0.399 + 0.6
+    w = torch.rand((b, t, h, n), generator=gen, device="cuda")
+    if w_zeros:
+        w.view(-1)[::7] = 0.0
+        w.view(-1)[3::11] = 1e-35
+    else:
+        w = w * 0.399 + 0.6
     u = torch.randn((h, n), generator=gen, device="cuda") * 0.5
     s0 = torch.randn((b, h, n, n), generator=gen, device="cuda") * 0.1
     if zero_state:
@@ -289,12 +298,14 @@ def phase_wkv6(ops, wkv6_ref) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs, timings = [], {}
     cases = [
-        ("prefill", (BATCH, PROMPT_LEN, 64, 64), True),
-        ("decode", (BATCH, 1, 64, 64), False),
-        ("smoke head dim 16", (2, 64, 4, 16), False),
+        ("prefill", (BATCH, PROMPT_LEN, 64, 64), True, False),
+        ("decode", (BATCH, 1, 64, 64), False, False),
+        ("w in [0, 1) with zeros", (BATCH, PROMPT_LEN, 64, 64), False, True),
+        ("ragged T", (BATCH, PROMPT_LEN + 1, 64, 64), False, False),
+        ("smoke head dim 16", (2, 64, 4, 16), False, False),
     ]
-    for label, shape, zero in cases:
-        args = wkv6_inputs(gen, *shape, zero_state=zero)
+    for label, shape, zero, w_zeros in cases:
+        args = wkv6_inputs(gen, *shape, zero_state=zero, w_zeros=w_zeros)
         y, s = ops.wkv6(*args)
         torch.cuda.synchronize()
         y_ref, s_ref = wkv6_ref(*args)
@@ -305,6 +316,8 @@ def phase_wkv6(ops, wkv6_ref) -> dict:
                 "wkv6 " + label, ops.wkv6, wkv6_ref,
                 lambda *sh, z=zero: wkv6_inputs(gen, *sh, zero_state=z),
                 shape, wkv6_input_bytes, wkv6_bound)
+
+    timings["heads_per_sm"] = wkv6_limiter(ops, gen)
 
     # state continuation: [0, t1) then [t1, T) with the carried state == one pass
     r, k, v, w, u, s0 = wkv6_inputs(gen, BATCH, PROMPT_LEN, 64, 64, zero_state=False)
@@ -319,7 +332,56 @@ def phase_wkv6(ops, wkv6_ref) -> dict:
     errs.append(check_close("wkv6 continuation state", s2, s_ref, WKV6_TOL))
     return kernel_entry("wkv6", "src/repro_torch/csrc/wkv6.cu",
                         "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:28", errs, timings["prefill"],
-                        decode=timings["decode"])
+                        decode=timings["decode"], heads_per_sm_ms=timings["heads_per_sm"])
+
+
+def wkv6_limiter(ops, gen) -> list:
+    """What holds WKV6: its device time at T = 512 with 1, 2, 3, 4 heads per
+    SM (B = 1, H = 132 n; the prefill has 512 heads, 3.9 per SM), and the
+    card's SM clock and power draw, sampled by nvidia-smi every 100 ms while
+    the 4-per-SM graph replays for a second.  Time that grows in proportion
+    to the heads per SM is bound by throughput (instructions or memory), not by the
+    latency of one head's chain."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    times = []
+    for per_sm in (1, 2, 3, 4):
+        shape = (1, PROMPT_LEN, sms * per_sm, 64)
+        n_sets = max(12, -(-2 * L2_BYTES // wkv6_input_bytes(*shape)))
+        sets = [wkv6_inputs(gen, *shape, zero_state=True) for _ in range(n_sets)]
+        times.append(device_ms([functools.partial(ops.wkv6, *x) for x in sets]))
+    print("  wkv6 heads per SM 1, 2, 3, 4 at T = 512: "
+          + ", ".join(f"{ms:.4f} ms ({ms / PROMPT_LEN * 1e6:.1f} ns per step)" for ms in times))
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for x in sets:
+            ops.wkv6(*x)
+    with subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             "-lms", "100"], stdout=subprocess.PIPE, text=True) as sampler:
+        try:
+            t0 = time.perf_counter()
+            while time.perf_counter() - t0 < 1.0:
+                graph.replay()
+                torch.cuda.synchronize()
+        finally:
+            sampler.terminate()
+        out = sampler.communicate(timeout=60)[0]
+    samples = []
+    for line in out.splitlines():
+        try:
+            clock, power = (float(f) for f in line.split(","))
+        except ValueError:
+            continue
+        samples.append((clock, power))
+    del graph
+    if samples:
+        print(f"  under that load ({len(samples)} samples): SM clock "
+              f"{min(c for c, _ in samples):.0f}-{max(c for c, _ in samples):.0f} MHz, "
+              f"power draw up to {max(p for _, p in samples):.2f} W")
+    return times
 
 
 def phase_rglru(ops, rglru_scan_ref) -> dict:

@@ -47,8 +47,8 @@ def wkv6(
     """Returns (y (B, T, H, N) f32, final state (B, H, N, N) f32).
 
     CPU tensors take the plain recurrence.  CUDA tensors launch the kernel,
-    which takes contiguous float32 inputs with head dim in
-    ``KERNEL_HEAD_DIMS``; anything else raises.
+    which takes contiguous float32 inputs on 16-byte boundaries with head
+    dim in ``KERNEL_HEAD_DIMS``; anything else raises.
     """
     b, t, h, n = r.shape
     for name, x in (("k", k), ("v", v), ("w", w)):
@@ -72,6 +72,8 @@ def wkv6(
         raise TypeError("the wkv6 kernel takes float32 tensors only")
     if not all(x.is_contiguous() for x in args):
         raise ValueError("the wkv6 kernel takes contiguous tensors only")
+    if any(x.data_ptr() % 16 for x in args):
+        raise ValueError("the wkv6 kernel takes tensors that start on 16-byte boundaries")
     if n not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the wkv6 kernel is built for head dims {KERNEL_HEAD_DIMS}, got {n}")
 

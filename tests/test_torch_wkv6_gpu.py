@@ -28,21 +28,45 @@ def card():
     return torch.device("cuda")
 
 
-def _inputs(shape, seed, device):
+def _inputs(shape, seed, device, w_kind="decay"):
+    """r, k, v ~ N(0, 1); u, s0 nonzero.  w_kind "decay" draws w over
+    [0.5, 0.999); "zeros" over [0, 1), with exact zeros, 1e-35 and the
+    subnormal 1e-40 mixed in."""
     b, t, h, n = shape
     rng = np.random.default_rng(seed)
+    if w_kind == "decay":
+        w = rng.uniform(0.5, 0.999, shape)
+    else:
+        w = rng.uniform(0.0, 1.0, shape).reshape(-1)
+        w[::7], w[3::11], w[5::13] = 0.0, 1e-35, 1e-40
+        w = w.reshape(shape)
     arrays = [rng.normal(0, 1, shape) for _ in range(3)] + [
-        rng.uniform(0.5, 0.999, shape),
+        w,
         rng.normal(0, 0.5, (h, n)),
         rng.normal(0, 0.1, (b, h, n, n)),
     ]
     return tuple(torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays)
 
 
+# the main path's shapes, ragged chunks (T = 1, 7, 200, 312, 513 at the
+# prefill's B, H), one head, head dim 16, and w with zeros and values below
+# 1e-30; every case has a nonzero s0
+CASES = [
+    pytest.param((8, 512, 64, 64), "decay", id="prefill"),
+    pytest.param((8, 1, 64, 64), "decay", id="decode"),
+    pytest.param((2, 64, 4, 16), "decay", id="head-dim-16"),
+    *(pytest.param((8, t, 64, 64), "decay", id=f"ragged-t{t}") for t in (7, 200, 312, 513)),
+    pytest.param((1, 512, 1, 64), "decay", id="one-head"),
+    pytest.param((3, 37, 5, 16), "decay", id="head-dim-16-ragged"),
+    pytest.param((8, 512, 64, 64), "zeros", id="w-zeros-subnormal"),
+    pytest.param((2, 64, 4, 16), "zeros", id="head-dim-16-w-zeros"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 512, 64, 64), (8, 1, 64, 64), (2, 64, 4, 16)])
-def test_kernel_matches_plain(card, shape):
-    args = _inputs(shape, seed=11, device=card)
+@pytest.mark.parametrize("shape,w_kind", CASES)
+def test_kernel_matches_plain(card, shape, w_kind):
+    args = _inputs(shape, seed=11, device=card, w_kind=w_kind)
     before = ops.wkv6.launches
     y, s = ops.wkv6(*args)
     torch.cuda.synchronize()
@@ -63,3 +87,7 @@ def test_kernel_refuses_what_it_is_not_built_for(card):
         ops.wkv6(r.double(), k, v, w, u, s0)
     with pytest.raises(ValueError, match="contiguous"):
         ops.wkv6(r.transpose(1, 2).contiguous().transpose(1, 2), k, v, w, u, s0)
+    shifted = torch.empty(r.numel() + 1, device=card)[1:].view(r.shape)   # 4 bytes in
+    shifted.copy_(r)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.wkv6(shifted, k, v, w, u, s0)
