@@ -38,11 +38,28 @@ Phases, each of which fails the run (nonzero exit, no result line):
 10. ``crdt_merge_many`` over three replicas of a YCSB table (10,000,000
    records of 10 fields x 100 bytes, held as 250 int32 words, int32
    versions), bit-exact against the plain fold, ACI at full size, and one
-   merge's device time against its bound.
+   merge's device time against its bound;
+11. minitron-8b (global attention, no kernel of the port on its path):
+   ``flash_attention`` against ``dense_attention`` on the card at (2, 2056,
+   32 q heads, 8 kv heads, 128), f32 and bf16, with the device time of each
+   and of PyTorch's ``scaled_dot_product_attention`` as a yardstick only;
+   then at full width and all 32 layers on its f32 weights, the check of
+   phase 4 on a linear KV cache in f32 and bf16, and a long prompt (batch 2,
+   2048 tokens + 8 decode steps) against the full forward over 2056 tokens,
+   which goes through ``flash_attention`` (asserted); a decode fed a zeroed
+   KV cache must fail each;
+12. minitron-8b served as in phase 5, every kernel's count 0;
+13. granite-moe-3b-a800m (top-8 of 40 experts, tied embeddings) at full width
+   and all 32 layers: the check of phase 11 on a copy of the config whose
+   capacity factor (5.0 = experts / top-k) drops nothing, and the drop
+   rate at the published 1.25 at the prefill and decode shapes;
+14. granite-moe-3b-a800m served as in phase 5, at the published capacity
+   factor, every kernel's count 0.
 
-The rwkv6-7b weights are released before recurrentgemma-9b's are drawn: the
-two would not fit on one 80 GB card together.  Phases 9 and 10 start on an
-empty card, after recurrentgemma-9b's weights are released.
+Each model's weights are released before the next one's are drawn (no two
+fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
+and 10 start on an empty card, after recurrentgemma-9b's weights are
+released, and phases 11 and 13 each on an empty card after the phase before.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -50,7 +67,10 @@ The line before the last lists the kernels as JSON; the last line is
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import contextlib
+import dataclasses
 import functools
 import json
 import statistics
@@ -68,9 +88,11 @@ F32_FLOPS = 67e12          # float32 outside the tensor cores
 L2_BYTES = 50 * 2**20
 
 RWKV, RG = "rwkv6-7b", "recurrentgemma-9b"
+DENSE, MOE = "minitron-8b", "granite-moe-3b-a800m"
 BATCH, PROMPT_LEN, GEN_LEN = 8, 512, 32
 CHECK_PROMPT, CHECK_STEPS = 64, 4
-RING_BATCH, RING_STEPS = 2, 8
+# phases 7, 11 and 13: a long prompt, then decode steps
+LONG_BATCH, LONG_PROMPT, LONG_STEPS = 2, 2048, 8
 
 # kernel vs plain, f32, relative to the output scale.  WKV6: the plain
 # version sums y through a batched matmul in another order.  RG-LRU: the
@@ -96,10 +118,14 @@ RGLRU_TOL = 1e-5
 # the same limit.
 FLOOR_MULT = 4.0
 DECODE_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# flash vs dense attention, relative to the output scale: in f32 the online
+# softmax only reorders the max and the sums (a few ulps); in bf16 flash
+# rounds p before it is normalised, dense after (the bf16 tolerance above)
+FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # injected cache faults: the cache leaves zeroed before every decode step
 RWKV_FAULTS = {"a zeroed WKV state": ("s",)}
-RG_FAULTS = {"a zeroed RG-LRU state (h, conv)": ("h", "conv"),
-             "a zeroed attention KV cache": ("k", "v")}
+ATTN_FAULTS = {"a zeroed attention KV cache": ("k", "v")}
+RG_FAULTS = {"a zeroed RG-LRU state (h, conv)": ("h", "conv"), **ATTN_FAULTS}
 GEMM_KERNEL_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 
 # phase 9: the gradient tree one device holds when the rwkv6-7b trainer
@@ -638,6 +664,29 @@ def check_decode(cfg, params, seq, cdt, prompt: int, faults: dict) -> None:
             fail(f"{cfg.name} {cdt}: the check does not catch a decode fed {fault}")
 
 
+def prefill_matmuls(cfg, tokens: int) -> tuple[int, float, str]:
+    """The matmul work of a forward over ``tokens`` tokens at once: the
+    parameters every token multiplies (all but the embedding, which is a
+    gather, and the experts; a tied table once more, as the unembedding),
+    the operations (2 per multiply-add) with each MoE layer's experts over
+    their E x capacity rows, the capacity padding included, and how the
+    experts were counted."""
+    from repro_torch.models.model import param_count
+
+    d = cfg.d_model
+    params = param_count(cfg) - (0 if cfg.tie_embeddings else cfg.vocab_size * d)
+    if cfg.moe is None:
+        return params, 2.0 * params * tokens, ""
+    m = cfg.moe
+    n_moe = sum(blk.ffn == "moe" for blk in cfg.block_list())
+    capacity = max(1, int(m.capacity_factor * m.top_k * tokens / m.n_experts))
+    params -= n_moe * m.n_experts * 3 * d * m.d_expert
+    experts = 2.0 * n_moe * m.n_experts * capacity * 3 * d * m.d_expert
+    return params, 2.0 * params * tokens + experts, (
+        f" + 2 x {n_moe} MoE layers x {m.n_experts} experts x {capacity} slots x "
+        f"3 x {d} x {m.d_expert}")
+
+
 def phase_serve(tag: str, cfg, params, tcfg, dev, counters: dict, expected: dict) -> dict:
     """Serve ``cfg`` at BATCH x PROMPT_LEN, GEN_LEN tokens, through
     ``launch.serve``, with every kernel's launch count set to 0 just before
@@ -646,13 +695,12 @@ def phase_serve(tag: str, cfg, params, tcfg, dev, counters: dict, expected: dict
     import torch
 
     from repro_torch.launch.serve import make_prompts, serve
-    from repro_torch.models.model import forward, init_cache, param_count
+    from repro_torch.models.model import forward, init_cache
     from repro_torch.train.train_step import build_serve_step
 
     prompts = make_prompts(cfg, BATCH, PROMPT_LEN, seed=0)
     max_len = PROMPT_LEN + GEN_LEN
-    matmul_params = param_count(cfg) - cfg.vocab_size * cfg.d_model   # the embedding is a gather
-    matmul_flops = 2 * matmul_params * BATCH * PROMPT_LEN
+    matmul_params, matmul_flops, expert_text = prefill_matmuls(cfg, BATCH * PROMPT_LEN)
 
     def prefill():       # as serve() prefills: f32 compute on the f32 weights
         with torch.inference_mode():
@@ -687,7 +735,7 @@ def phase_serve(tag: str, cfg, params, tcfg, dev, counters: dict, expected: dict
     print(f"  sample row: {gen[0].tolist()}")
     print(f"  prefill matmuls: {matmul_flops / res.prefill_s / 1e12:.1f} TFLOP/s over the "
           f"prefill's wall time, a lower bound on their rate (2 x {matmul_params:,} x "
-          f"{BATCH * PROMPT_LEN} tokens)")
+          f"{BATCH * PROMPT_LEN} tokens{expert_text})")
     print_busy("prefill", prefill_dev_ms, res.prefill_s * 1e3)
     by_dtype: dict = {}
     for leaf in _tensors(params):
@@ -710,20 +758,30 @@ def phase_serve(tag: str, cfg, params, tcfg, dev, counters: dict, expected: dict
     return launches
 
 
+def draw(tag: str, arch: str, tcfg, dev):
+    """The config of ``arch`` and its f32 weights, drawn on the card."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import init_model
+    from repro_torch.models.model import param_count
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_model(cfg, tcfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    print(f"{tag} {cfg.name}: {param_count(cfg):,} parameters in f32 on the card "
+          f"({time.perf_counter() - t0:.1f} s to draw)")
+    return cfg, params
+
+
 def run_rwkv6(dev, tcfg, counters) -> dict:
     """Phases 4 and 5; the weights are freed on return."""
     import torch
 
-    from repro_torch.configs.registry import get_config
-    from repro_torch.launch.serve import init_model, make_prompts
-    from repro_torch.models.model import param_count
+    from repro_torch.launch.serve import make_prompts
 
-    cfg = get_config(RWKV)
-    t0 = time.perf_counter()
-    params = init_model(cfg, tcfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    print(f"[4] {cfg.name}: {param_count(cfg):,} parameters in f32 on the card "
-          f"({time.perf_counter() - t0:.1f} s to draw)")
+    cfg, params = draw("[4]", RWKV, tcfg, dev)
     seq = torch.from_numpy(make_prompts(cfg, BATCH, CHECK_PROMPT + CHECK_STEPS, seed=1)).to(dev)
     for cdt in (torch.float32, tcfg.compute_dtype):
         print(f"[4] prefill {CHECK_PROMPT} + {CHECK_STEPS} decode steps vs full forward, all "
@@ -761,18 +819,197 @@ def run_recurrentgemma(dev, tcfg, counters) -> dict:
 
     # ---- 7. the ring cache: a prompt of exactly the window, decode wraps it
     window = cfg.local_window
-    seq = torch.from_numpy(make_prompts(cfg, RING_BATCH, window + RING_STEPS, seed=2)).to(dev)
-    print(f"[7] ring cache: batch {RING_BATCH}, prefill {window} + {RING_STEPS} decode steps "
-          f"(cache of {window + RING_STEPS} positions -> a ring of {window}) vs the full "
+    seq = torch.from_numpy(make_prompts(cfg, LONG_BATCH, window + LONG_STEPS, seed=2)).to(dev)
+    print(f"[7] ring cache: batch {LONG_BATCH}, prefill {window} + {LONG_STEPS} decode steps "
+          f"(cache of {window + LONG_STEPS} positions -> a ring of {window}) vs the full "
           f"forward (banded attention), all {cfg.n_layers} layers, float32 compute")
-    check_decode(cfg, params, seq, torch.float32, window,
-                 {"a zeroed attention KV cache": ("k", "v")})
+    check_decode(cfg, params, seq, torch.float32, window, ATTN_FAULTS)
     del seq
     torch.cuda.empty_cache()
 
     # ---- 8. main path
     return phase_serve("[8]", cfg, params, tcfg, dev, counters,
                        {name: 0 for name in counters} | {"rglru_scan": n_rglru * GEN_LEN})
+
+
+@contextlib.contextmanager
+def spying(module, name: str, record):
+    """Within the block, every call of ``module.name`` passes its arguments
+    to ``record`` first."""
+    real = getattr(module, name)
+
+    def spy(*args, **kwargs):
+        record(*args, **kwargs)
+        return real(*args, **kwargs)
+
+    setattr(module, name, spy)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def phase_flash_vs_dense(tag: str) -> None:
+    """flash_attention against dense_attention on the card at the shape the
+    long forward of phase 11 gives it (minitron-8b's heads, 2 x 2056
+    tokens, the chunks attention_any picks), f32 and bf16; the device time
+    of each and, as a yardstick only, of PyTorch's
+    scaled_dot_product_attention on the same inputs (its error printed, not
+    gated)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.layers import _largest_chunk, dense_attention, flash_attention
+
+    cfg = get_config(DENSE)
+    b, s, hq, hkv, d = (LONG_BATCH, LONG_PROMPT + LONG_STEPS, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.resolved_head_dim)
+    chunk = _largest_chunk(s, 1024)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for dt in (torch.float32, torch.bfloat16):
+        q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dt)
+        k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dt)
+                for _ in range(2))
+        flash = functools.partial(flash_attention, q, k, v, causal=True, q_chunk=chunk,
+                                  kv_chunk=chunk)
+        dense = functools.partial(dense_attention, q, k, v, causal=True)
+        # the yardstick in its own layout, kv heads repeated for the q heads
+        qs, ks, vs = (x.transpose(1, 2).contiguous()
+                      for x in (q, k.repeat_interleave(hq // hkv, 2),
+                                v.repeat_interleave(hq // hkv, 2)))
+        sdpa = functools.partial(F.scaled_dot_product_attention, qs, ks, vs, is_causal=True)
+        want = dense().float()
+        label = str(dt).removeprefix("torch.")
+        check_close(f"flash_attention vs dense_attention {(b, s, hq, hkv, d)} {label}, "
+                    f"chunks {chunk}", flash().float(), want, FLASH_TOL[label])
+        sdpa_err = (sdpa().transpose(1, 2).float() - want).abs().max().item()
+        times = {name: device_ms([fn], reps=3) for name, fn in
+                 (("flash_attention", flash), ("dense_attention", dense), ("sdpa", sdpa))}
+        print(f"{tag} {label}: device time flash_attention {times['flash_attention']:.4f} ms, "
+              f"dense_attention {times['dense_attention']:.4f} ms; yardstick (not on the path) "
+              f"scaled_dot_product_attention {times['sdpa']:.4f} ms, max abs err against "
+              f"dense {sdpa_err:.3e}")
+    torch.cuda.empty_cache()
+
+
+def check_long_prompt(tag: str, cfg, params, dev) -> None:
+    """Prefill of LONG_PROMPT tokens + LONG_STEPS decode steps on a linear
+    cache, against the full forward, f32, gated as in phase 4 and failed on
+    purpose by a zeroed KV cache.  The forwards over all positions go
+    through flash_attention (S^2 is above attention_any's dense threshold):
+    asserted from its calls."""
+    import torch
+
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import layers
+
+    n = LONG_PROMPT + LONG_STEPS
+    chunk = layers._largest_chunk(n, 1024)
+    seq = torch.from_numpy(make_prompts(cfg, LONG_BATCH, n, seed=2)).to(dev)
+    print(f"{tag} long prompt: batch {LONG_BATCH}, prefill {LONG_PROMPT} + {LONG_STEPS} decode "
+          f"steps on a linear cache of {n} positions vs the full forward over {n} tokens "
+          f"(flash attention, chunks of {chunk}), all {cfg.n_layers} layers, float32 compute")
+    calls = []
+    with spying(layers, "flash_attention",
+                lambda q, k, v, **kw: calls.append((q.shape[1], kw["q_chunk"], kw["kv_chunk"]))):
+        check_decode(cfg, params, seq, torch.float32, LONG_PROMPT, ATTN_FAULTS)
+    seen = collections.Counter(calls)
+    print(f"  flash_attention calls by (length, q chunk, kv chunk): {dict(seen)}")
+    # the full forward and the noise floor's one-sequence-at-a-time forwards
+    want = (1 + LONG_BATCH) * sum(blk.mixer == "attn" for blk in cfg.block_list())
+    if seen[(n, chunk, chunk)] != want:
+        fail(f"{cfg.name}: {seen[(n, chunk, chunk)]} flash_attention calls over {n} tokens, "
+             f"expected {want}")
+
+
+def check_attention_model(tag: str, cfg, params, tcfg, dev) -> None:
+    """The checks of phases 11 and 13: the short prompt in f32 and in the
+    decode dtype, then the long prompt; a zeroed KV cache must fail each."""
+    import torch
+
+    from repro_torch.launch.serve import make_prompts
+
+    seq = torch.from_numpy(make_prompts(cfg, BATCH, CHECK_PROMPT + CHECK_STEPS, seed=1)).to(dev)
+    for cdt in (torch.float32, tcfg.compute_dtype):
+        print(f"{tag} prefill {CHECK_PROMPT} + {CHECK_STEPS} decode steps vs full forward, all "
+              f"{cfg.n_layers} layers, {cdt} compute ({tcfg.param_dtype} weights), a linear "
+              f"cache of {CHECK_PROMPT + CHECK_STEPS} positions")
+        check_decode(cfg, params, seq, cdt, CHECK_PROMPT, ATTN_FAULTS)
+    del seq
+    check_long_prompt(tag, cfg, params, dev)
+    torch.cuda.empty_cache()
+
+
+def run_minitron(dev, tcfg, counters) -> dict:
+    """Phases 11 and 12 on an emptied card; the weights are freed on return."""
+    memory_line("[11]", "start")
+    phase_flash_vs_dense("[11]")
+    cfg, params = draw("[11]", DENSE, tcfg, dev)
+    check_attention_model("[11]", cfg, params, tcfg, dev)
+    memory_line("[11]", "end")
+    return phase_serve("[12]", cfg, params, tcfg, dev, counters,
+                       {name: 0 for name in counters})
+
+
+def moe_drop_rates(tag: str, cfg, params, tcfg, dev) -> None:
+    """The drop rate at the published capacity factor, from moe_apply's aux
+    on the first MoE layer's input at the served shapes: the prefill of the
+    served prompts (f32) and the first decode step after it (in the decode
+    dtype).  The decode check's copy of the config must drop nothing on the
+    prefill's input."""
+    import torch
+
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.models import moe
+    from repro_torch.models.model import init_cache
+
+    first = params["layers"][0]["ffn"]
+    inputs = []
+    prompts = torch.from_numpy(make_prompts(cfg, BATCH, PROMPT_LEN, seed=0)).to(dev)
+    with spying(moe, "moe_apply", lambda p, x, **kw: p is first and inputs.append(x)):
+        cache = init_cache(cfg, BATCH, PROMPT_LEN + 1, dtype=torch.float32, device=dev)
+        logits, cache = _logits(cfg, params, prompts, torch.float32, cache)
+        tok = logits[:, -1].argmax(dim=-1)[:, None]
+        del logits
+        _logits(cfg, params, tok, tcfg.compute_dtype, cache)
+    m = cfg.moe
+    with torch.inference_mode():
+        for label, x in zip(("prefill", "decode"), inputs):
+            t = x.shape[0] * x.shape[1]
+            capacity = max(1, int(m.capacity_factor * m.top_k * t / m.n_experts))
+            _, aux = moe.moe_apply(first, x, top_k=m.top_k, capacity_factor=m.capacity_factor,
+                                   return_aux=True)
+            print(f"{tag} drop rate at capacity factor {m.capacity_factor}, first MoE layer, "
+                  f"{label} ({x.dtype}, t = {t}, capacity {capacity}): "
+                  f"{float(aux['drop_rate']):.6f} of {t * m.top_k} assignments; aux loss "
+                  f"{float(aux['aux_loss']):.6f}")
+        no_drop = m.n_experts / m.top_k
+        _, aux = moe.moe_apply(first, inputs[0], top_k=m.top_k, capacity_factor=no_drop,
+                               return_aux=True)
+    if float(aux["drop_rate"]) != 0.0:
+        fail(f"{cfg.name}: capacity factor {no_drop} drops {float(aux['drop_rate'])}")
+
+
+def run_granite(dev, tcfg, counters) -> dict:
+    """Phases 13 and 14 on an emptied card; the weights are freed on return.
+    The decode check runs on a copy of the config whose capacity factor is
+    n_experts / top_k, so capacity = t and no assignment drops: capacity is
+    per call (t = B x S tokens), and at the published 1.25 a decode step of
+    8 tokens has 2 slots per expert and drops assignments that the full
+    forward over 8 x 68 tokens keeps, the reference's semantics, which a
+    cached decode cannot match position by position."""
+    memory_line("[13]", "start")
+    cfg, params = draw("[13]", MOE, tcfg, dev)
+    no_drop = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    print(f"[13] decode checks at capacity factor {no_drop.moe.capacity_factor} "
+          f"(capacity = t, nothing drops); served at the published {cfg.moe.capacity_factor}")
+    check_attention_model("[13]", no_drop, params, tcfg, dev)
+    moe_drop_rates("[13]", cfg, params, tcfg, dev)
+    memory_line("[13]", "end")
+    return phase_serve("[14]", cfg, params, tcfg, dev, counters,
+                       {name: 0 for name in counters})
 
 
 def memory_line(tag: str, when: str) -> None:
@@ -1146,6 +1383,14 @@ def main() -> None:
         "src/repro/kernels/crdt_merge/crdt_merge.py:24", merge_errs, merge["main"],
         library_ms=merge["main"]["plain_ms"])
     entries["crdt_merge"]["launches"] = merge["launches"]["crdt_merge"]
+
+    # ---- 11-14. the global-attention decoders: minitron-8b, then granite-moe-3b-a800m
+    for arch, run in ((DENSE, run_minitron), (MOE, run_granite)):
+        t_phase = time.perf_counter()
+        run(dev, tcfg, counters)
+        torch.cuda.empty_cache()
+        print(f"  released the {arch} weights: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+              f"still allocated; {time.perf_counter() - t_phase:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

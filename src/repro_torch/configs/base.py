@@ -1,13 +1,28 @@
 """Model / shape configuration dataclasses (the port's own copy of
-``repro.configs.base``; MoE and MLA settings arrive with the slices that
-port those blocks)."""
+``repro.configs.base``; MLA settings arrive with the slice that ports
+MLA)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
-__all__ = ["Block", "ModelConfig", "ShapeSpec"]
+__all__ = ["MoEConfig", "Block", "ModelConfig", "ShapeSpec"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden dim
+    n_shared: int = 0             # shared (always-on) experts
+    d_shared: int = 0             # shared-expert hidden dim (0 -> d_expert)
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+
+    @property
+    def shared_hidden(self) -> int:
+        return self.d_shared or self.d_expert
 
 
 # mixer:  attn | attn_local | attn_cross | mla | rwkv | rglru
@@ -33,6 +48,7 @@ class ModelConfig:
     causal: bool = True
     blocks_prefix: tuple[Block, ...] = ()
     blocks_pattern: tuple[Block, ...] = (Block(),)
+    moe: MoEConfig | None = None
     local_window: int = 0
     n_img_tokens: int = 0
     frontend: Literal["token", "frames", "patches"] = "token"

@@ -3,10 +3,29 @@ points.  It holds the architectures whose path the port runs so far."""
 
 from __future__ import annotations
 
-from . import recurrentgemma_9b, rwkv6_7b
+from . import (
+    deepseek_7b,
+    deepseek_coder_33b,
+    granite_moe_3b,
+    minitron_8b,
+    qwen2_5_32b,
+    recurrentgemma_9b,
+    rwkv6_7b,
+)
 from .base import ModelConfig
 
-_MODULES = {m.ARCH_ID: m for m in (rwkv6_7b, recurrentgemma_9b)}
+_MODULES = {
+    m.ARCH_ID: m
+    for m in (
+        rwkv6_7b,
+        recurrentgemma_9b,
+        minitron_8b,
+        deepseek_7b,
+        qwen2_5_32b,
+        deepseek_coder_33b,
+        granite_moe_3b,
+    )
+}
 
 ARCHS: tuple[str, ...] = tuple(_MODULES)
 

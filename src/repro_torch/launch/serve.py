@@ -2,9 +2,12 @@
 the recurrent state and the attention cache.  Counterpart of
 ``examples/serve_decode.py``.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch rwkv6-7b|recurrentgemma-9b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch ARCH \
         [--smoke] [--batch 8 --prompt-len 24 --gen-len 16] [--device cpu]
+
+``ARCH`` is one of ``configs.registry.ARCHS``: rwkv6-7b (the default),
+recurrentgemma-9b, minitron-8b, deepseek-7b, qwen2.5-32b,
+deepseek-coder-33b, granite-moe-3b-a800m.
 
 Prompts come from numpy with ``--seed``; parameters from a
 ``torch.Generator`` seeded the same way, on the device.  The cache holds

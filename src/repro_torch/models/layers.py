@@ -1,6 +1,6 @@
 """Shared model primitives: plain functions on tensors over nested dicts of
-parameters, the subset of ``repro.models.layers`` that rwkv6 and
-recurrentgemma need.
+parameters, the subset of ``repro.models.layers`` that the ported models
+need.
 
 Conventions (as in the JAX package): activations compute in ``x.dtype``;
 dense weights keep the JAX ``(d_in, d_out)`` layout, so ``y = x @ w``.  An
@@ -30,6 +30,7 @@ __all__ = [
     "rope_freqs",
     "apply_rope",
     "dense_attention",
+    "flash_attention",
     "banded_attention",
     "attention_any",
     "gqa_init",
@@ -169,6 +170,59 @@ def dense_attention(
     return out.reshape(b, sq, hkv * g, dv)
 
 
+def flash_attention(
+    q: torch.Tensor,                 # (B, Sq, Hq, D)
+    k: torch.Tensor,                 # (B, Sk, Hkv, D)
+    v: torch.Tensor,                 # (B, Sk, Hkv, Dv)
+    *,
+    causal: bool = True,
+    q_chunk: int = 1024,
+    kv_chunk: int = 1024,
+) -> torch.Tensor:
+    """Online-softmax blockwise attention, as the JAX package's
+    ``flash_attention`` computes it: per block of ``q_chunk`` queries, the
+    running max ``m``, sum ``l`` and output ``acc`` in f32 over blocks of
+    ``kv_chunk`` keys; ``p`` in the query dtype for the PV product.  Live
+    scores are O(q_chunk x kv_chunk), not O(Sq x Sk).  Causal q blocks skip
+    the kv blocks wholly after them: there every score is ``_NEG`` below a
+    finite ``m`` (block 0 holds key 0, which every query sees), so the
+    reference's update adds exact zeros and scales by exactly 1."""
+    b, sq, hq, d = q.shape
+    _, sk, hkv, dv = v.shape
+    q_chunk = min(q_chunk, sq)
+    kv_chunk = min(kv_chunk, sk)
+    if sq % q_chunk or sk % kv_chunk:
+        raise ValueError(f"chunks ({q_chunk}, {kv_chunk}) do not divide the lengths ({sq}, {sk})")
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qs = q.reshape(b, sq // q_chunk, q_chunk, hkv, g, d)
+    kpos_all = torch.arange(sk, device=q.device)
+    blocks = []
+    for qi in range(sq // q_chunk):
+        qb = qs[:, qi]
+        qpos = qi * q_chunk + torch.arange(q_chunk, device=q.device)
+        m = torch.full((b, hkv, g, q_chunk), _NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, hkv, g, q_chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((b, hkv, g, q_chunk, dv), dtype=torch.float32, device=q.device)
+        for lo in range(0, sk, kv_chunk):
+            if causal and lo >= (qi + 1) * q_chunk:
+                break
+            kb, vb = k[:, lo:lo + kv_chunk], v[:, lo:lo + kv_chunk]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb).float() * scale
+            if causal:
+                s = torch.where(qpos[:, None] >= kpos_all[None, lo:lo + kv_chunk], s, _NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p.to(qb.dtype), vb).float()
+            m = m_new
+        out = acc / torch.clamp_min(l[..., None], 1e-30)
+        blocks.append(out.permute(0, 3, 1, 2, 4).reshape(b, q_chunk, hq, dv).to(q.dtype))
+    return torch.cat(blocks, dim=1)
+
+
 def banded_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -225,17 +279,15 @@ _FLASH_THRESHOLD = 2048
 def attention_any(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
     """The attention strategy for the shapes at hand, as the JAX package
     picks it: dense up to ``2048^2 / 4`` scores, banded for local
-    self-attention above."""
+    self-attention above, flash otherwise."""
     sq, sk = q.shape[1], k.shape[1]
     if sq == 1 or sq * sk <= _FLASH_THRESHOLD * _FLASH_THRESHOLD // 4:
         return dense_attention(q, k, v, causal=causal, window=window)
     if window > 0 and sq == sk:
         qc = _largest_chunk(sq, min(1024, window))
         return banded_attention(q, k, v, window=window, q_chunk=qc)
-    raise NotImplementedError(
-        f"flash attention ({sq} x {sk} scores, window {window}) is not ported "
-        "yet; it comes with the dense decoders' serving path slice of the port"
-    )
+    return flash_attention(q, k, v, causal=causal, q_chunk=_largest_chunk(sq, 1024),
+                           kv_chunk=_largest_chunk(sk, 1024))
 
 
 # ---------------------------------------------------------------------------

@@ -14,9 +14,10 @@ Public API:
     param_dtypes(params)                              -> dtypes cast_params_ sets
     param_count(cfg)                                  -> int
 
-The port runs the mixers ``rwkv``, ``rglru`` and ``attn_local`` and the ffns
-``rwkv_cmix``, ``dense`` and ``none``; any other block raises
-``NotImplementedError`` naming the slice that will port it.
+The port runs the mixers ``rwkv``, ``rglru``, ``attn`` and ``attn_local``
+and the ffns ``rwkv_cmix``, ``dense``, ``moe`` and ``none``; any other block,
+or a frontend other than tokens, raises ``NotImplementedError`` naming the
+slice that will port it.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 
 from ..configs.base import Block, ModelConfig
 from ..device import resolve_device
+from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
 from .layers import (
@@ -48,40 +50,37 @@ __all__ = [
     "param_count",
 ]
 
-_MIXERS = ("rwkv", "rglru", "attn_local")
-_FFNS = ("rwkv_cmix", "dense", "none")
-_LATER_SLICE = {
-    "attn": "dense decoders' serving path",
-    "attn_cross": "MoE, MLA and cross-attention",
-    "mla": "MoE, MLA and cross-attention",
-    "moe": "MoE, MLA and cross-attention",
-}
+_MIXERS = ("rwkv", "rglru", "attn", "attn_local")
+_FFNS = ("rwkv_cmix", "dense", "moe", "none")
+_LATER_SLICE = "MLA, cross-attention and frames frontend"
 
 # sub-trees of a layer that the model reads in f32 whatever the compute
 # dtype, so cast_params_ leaves them f32:
 # * rwkv6.py: w_base feeds the f32 decay, ln_g/ln_b the f32 group norm;
 # * rglru.py: lam feeds the f32 decay; wa/wx (weights and biases) gate the
 #   conv output, which an f32 conv window keeps f32 under bf16 compute, so
-#   the JAX package reads them in f32 when it decodes on an f32 cache.
+#   the JAX package reads them in f32 when it decodes on an f32 cache;
+# * moe.py: the router, which the JAX package reads as f32 weights whatever
+#   the compute dtype; rounded to bf16 it would flip near-tie expert choices.
 F32_SUBTREES = frozenset({
     ("mixer", "w_base"), ("mixer", "ln_g"), ("mixer", "ln_b"),
     ("mixer", "lam"), ("mixer", "wa"), ("mixer", "wx"),
+    ("ffn", "router"),
 })
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     if cfg.frontend != "token":
         raise NotImplementedError(
-            f"frontend {cfg.frontend!r} is not ported yet (MoE, MLA and "
-            "cross-attention slice)"
+            f"frontend {cfg.frontend!r} is not ported yet; it comes with the "
+            f"{_LATER_SLICE} slice of the port"
         )
     for blk in cfg.block_list():
         for part, known in ((blk.mixer, _MIXERS), (blk.ffn, _FFNS)):
             if part not in known:
-                slice_ = _LATER_SLICE.get(part, "a later")
                 raise NotImplementedError(
                     f"{part!r} blocks are not ported yet; they come with the "
-                    f"{slice_} slice of the port"
+                    f"{_LATER_SLICE} slice of the port"
                 )
 
 
@@ -93,7 +92,7 @@ def _block_init(gen, cfg: ModelConfig, block: Block, device) -> Params:
     elif block.mixer == "rglru":
         p["mixer"] = rglru_mod.rglru_block_init(gen, d, cfg.rglru_lru_width or d, device,
                                                 cfg.rglru_conv_width)
-    else:                                                   # attn_local
+    else:                                                   # attn, attn_local
         p["mixer"] = gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                               device, bias=cfg.qkv_bias)
     if block.ffn != "none":
@@ -102,6 +101,9 @@ def _block_init(gen, cfg: ModelConfig, block: Block, device) -> Params:
         p["ffn"] = rwkv_mod.rwkv_cmix_init(gen, d, cfg.d_ff, device)
     elif block.ffn == "dense":
         p["ffn"] = swiglu_init(gen, d, cfg.d_ff, device)
+    elif block.ffn == "moe":
+        p["ffn"] = moe_mod.moe_init(gen, d, cfg.moe.n_experts, cfg.moe.d_expert, device,
+                                    n_shared=cfg.moe.n_shared, d_shared=cfg.moe.d_shared)
     return p
 
 
@@ -113,10 +115,12 @@ def _block_cache(cfg: ModelConfig, block: Block, b: int, max_len: int | None,
     if block.mixer == "rglru":
         return rglru_mod.rglru_init_state(b, cfg.rglru_lru_width or cfg.d_model,
                                           cfg.rglru_conv_width, dtype=dtype, device=device)
-    if max_len is None:                                     # attn_local
+    if max_len is None:                                     # attn, attn_local
         raise ValueError(f"{cfg.name} has attention blocks: init_cache needs max_len")
+    # a global attention cache is linear; a local one a ring where it spans the window
+    window = min(cfg.local_window, max_len) if block.mixer == "attn_local" else 0
     return gqa_init_cache(b, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
-                          window=min(cfg.local_window, max_len), dtype=dtype, device=device)
+                          window=window, dtype=dtype, device=device)
 
 
 def _block_apply(cfg: ModelConfig, block: Block, p: Params, x: torch.Tensor,
@@ -130,10 +134,11 @@ def _block_apply(cfg: ModelConfig, block: Block, p: Params, x: torch.Tensor,
         new_cache = None if cache is None else dict(cache, tmix=new_t)
     elif block.mixer == "rglru":
         y, new_cache = rglru_mod.rglru_block_apply(p["mixer"], h, state=cache)
-    else:                                                   # attn_local
+    else:                                                   # attn, attn_local
         y, new_cache = gqa_apply(
             p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.resolved_head_dim, causal=cfg.causal, window=cfg.local_window,
+            head_dim=cfg.resolved_head_dim, causal=cfg.causal,
+            window=cfg.local_window if block.mixer == "attn_local" else 0,
             rope_theta=cfg.rope_theta, cache=cache,
         )
     x = x + y
@@ -142,6 +147,9 @@ def _block_apply(cfg: ModelConfig, block: Block, p: Params, x: torch.Tensor,
     h2 = rmsnorm_apply(p["norm2"], x, eps=cfg.norm_eps)
     if block.ffn == "dense":
         return x + swiglu_apply(p["ffn"], h2), new_cache
+    if block.ffn == "moe":
+        return x + moe_mod.moe_apply(p["ffn"], h2, top_k=cfg.moe.top_k,
+                                     capacity_factor=cfg.moe.capacity_factor), new_cache
     # the cmix shift is carried only behind an rwkv mixer (model.py:188)
     carry = cache is not None and block.mixer == "rwkv"
     y2, new_c = rwkv_mod.rwkv_cmix_apply(
@@ -175,8 +183,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
                dtype: torch.dtype = torch.bfloat16,
                device: str | torch.device | None = None) -> Params:
     """Decode cache, one entry per layer.  ``max_len`` sizes the attention
-    caches: a local-attention cache holds ``min(local_window, max_len)``
-    positions, a ring when that is the window.  Recurrent state is O(1) in
+    caches: a global-attention cache holds ``max_len`` positions, a
+    local-attention one ``min(local_window, max_len)``, a ring when that is
+    the window.  Recurrent state is O(1) in
     length, so a model without attention blocks may leave it out."""
     _check_ported(cfg)
     device = resolve_device(device)

@@ -199,10 +199,17 @@ def test_long_forward_goes_through_banded_attention(monkeypatch):
 
 
 def test_flash_branch_names_its_slice():
-    q = torch.zeros((1, 1088, 4, 16))
-    k = v = torch.zeros((1, 1088, 1, 16))
-    with pytest.raises(NotImplementedError, match="dense decoders"):
-        layers.attention_any(q, k, v, window=0)
+    """The flash branch of ``attention_any``, which raised before the
+    global-attention slice, at the shape it raised on: S = 1088 with no
+    window takes flash attention on both sides (chunks of 544) and agrees
+    with JAX; causal and not."""
+    rng = np.random.default_rng(13)
+    q, k, v = (rng.normal(0, 1, (1, 1088, h, 16)).astype(np.float32) for h in (4, 1, 1))
+    t = [torch.from_numpy(x) for x in (q, k, v)]
+    for causal in (True, False):
+        want = jax_layers.attention_any(*map(jnp.asarray, (q, k, v)), causal=causal, window=0)
+        got = layers.attention_any(*t, causal=causal, window=0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
 
 
 def test_ring_prefill_longer_than_window_is_refused_where_jax_diverges():

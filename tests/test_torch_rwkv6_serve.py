@@ -215,7 +215,8 @@ def test_param_count_matches_jax(full):
 
 
 def test_registry_matches_jax_and_refuses_unknown_arch():
-    assert ARCHS == ("rwkv6-7b", "recurrentgemma-9b")
+    assert ARCHS == ("rwkv6-7b", "recurrentgemma-9b", "minitron-8b", "deepseek-7b",
+                     "qwen2.5-32b", "deepseek-coder-33b", "granite-moe-3b-a800m")
     for arch in ARCHS:
         for get, jax_get in ((get_config, jax_get_config),
                              (get_smoke_config, jax_get_smoke_config)):
@@ -223,17 +224,20 @@ def test_registry_matches_jax_and_refuses_unknown_arch():
             for name, value in ours.items():
                 assert value == theirs[name], (arch, name)
     with pytest.raises(KeyError, match="rwkv6-7b"):
-        get_config("minitron-8b")
+        get_config("deepseek-v3-671b")
 
 
 def test_unported_blocks_name_their_slice():
-    cfg = dataclasses.replace(get_smoke_config(ARCH), blocks_pattern=(Block("attn", "dense"),))
-    with pytest.raises(NotImplementedError, match="dense decoders"):
-        model.init_params(cfg, None, "meta")
-    for block in (Block("mla", "dense"), Block("rglru", "moe"), Block("attn_cross", "dense")):
-        cfg = dataclasses.replace(get_smoke_config(ARCH), blocks_pattern=(block,))
-        with pytest.raises(NotImplementedError, match="MoE, MLA and cross-attention"):
+    smoke = get_smoke_config(ARCH)
+    moe = get_smoke_config("granite-moe-3b-a800m").moe
+    for block in (Block("attn", "dense"), Block("rglru", "moe")):     # ported
+        model.param_count(dataclasses.replace(smoke, blocks_pattern=(block,), moe=moe))
+    for block in (Block("mla", "dense"), Block("attn_cross", "dense")):
+        cfg = dataclasses.replace(smoke, blocks_pattern=(block,))
+        with pytest.raises(NotImplementedError, match="MLA, cross-attention and frames frontend"):
             model.param_count(cfg)
+    with pytest.raises(NotImplementedError, match="frontend 'frames'.*MLA, cross-attention"):
+        model.init_params(dataclasses.replace(smoke, frontend="frames"), None, "meta")
 
 
 def test_entry_points_default_to_cuda():
