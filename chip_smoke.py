@@ -12,8 +12,12 @@ Phases, each of which fails the run (nonzero exit, no result line):
    paths' shapes, with its CUDA-graph device time, its bound and the plain
    time; WKV6 also with w over [0, 1) holding zeros, and at a ragged
    T = 513, and its time at 1-4 heads per SM with the SM clock and power
-   draw under that load; the white-data filter and the CRDT merge also at
-   small odd shapes, bit for bit;
+   draw under that load; the backward kernels of WKV6 and the RG-LRU scan
+   against their plain reverse sweeps at the training shapes (2, 4096, 64,
+   64) and (1, 4096, 4096) and the serving prefill's, WKV6's also at a
+   ragged T = 513, with w holding zeros and with nonzero s0 and ds_fin;
+   the white-data filter and the CRDT merge also at small odd shapes, bit
+   for bit;
 4. rwkv6-7b at full width and depth, on its f32 weights: prefill + stepwise
    decode against the full forward, in f32 and bf16 compute, each decode
    position gated against a multiple of the noise floor measured in the same
@@ -54,12 +58,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    capacity factor (5.0 = experts / top-k) drops nothing, and the drop
    rate at the published 1.25 at the prefill and decode shapes;
 14. granite-moe-3b-a800m served as in phase 5, at the published capacity
-   factor, every kernel's count 0.
+   factor, every kernel's count 0;
+15. rwkv6-7b training at full width, 8 of its 32 layers (f32 parameters,
+   gradients, m and v take 16 B a parameter: 121 GB for the whole model,
+   36.7 GB for 8 layers): (a) the gradients of every leaf through the
+   kernels against those with both wrappers swapped for the plain
+   recurrences (f32, batch 2 x 64), each mixer leaf nonzero on both paths;
+   (d) microbatches 1 and 2 on the same step; (b) the main path: 4 steps of
+   ``launch.train.train()`` at batch 2 x 4096 in bf16 compute with remat,
+   every kernel's count read around it (WKV6 forward 2 x 8 a step: the
+   forward and remat's recompute; backward 8); (c) the loss falls over 5
+   steps on one repeated batch, the last step profiled (device busy share,
+   the kernels' share of its device time);
+16. recurrentgemma-9b training, the same checks, full width, 3 of 38 layers
+   (one rglru, rglru, attn_local repetition), batch 1 x 4096 through banded
+   attention; RG-LRU forward 2 x 2 and backward 2 a step;
+17. granite-moe-3b-a800m training, the same checks but (a), at full width
+   and all 32 layers (52.8 GB of state), batch 1 x 4096 through the plain
+   flash attention and MoE dispatch, every kernel's count 0;
+18. demo-100m (``examples/train_100m.py``): 100 steps of ``train()`` at
+   batch 8 x 256, the loss must fall; the same run saved at step 50 and
+   resumed by a fresh ``train()`` must match it bit for bit.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11 and 13 each on an empty card after the phase before.
+released, and phases 11, 13 and 15-18 each on an empty card after the phase
+before.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -73,6 +98,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -101,6 +127,18 @@ LONG_BATCH, LONG_PROMPT, LONG_STEPS = 2, 2048, 8
 # difference stays a few ulps of the state.
 WKV6_TOL = 2e-5
 RGLRU_TOL = 1e-5
+# WKV6 backward kernel vs the plain reverse sweep, relative to each
+# gradient's scale: the same f32 sweep, with the contractions summed in
+# another order and the states recomputed by FMA from checkpoints every 8
+# steps where the plain version keeps each state; over T = 4096 steps the
+# dS recurrence carries those roundings along.  (The RG-LRU backward is held
+# to RGLRU_TOL: the same products and sums, the carry maybe an FMA.)
+WKV6_BWD_TOL = 1e-4
+# the backward kernels' shapes on the training path (phases 15 and 16)
+TRAIN_WKV_SHAPE = (2, 4096, 64, 64)
+TRAIN_RG_SHAPE = (1, 4096, 4096)
+BACKWARD_NOTE = ("new, no Pallas counterpart: the reference differentiates %s with "
+                 "autodiff; 'replaces' names the forward's TPU kernel")
 # prefill + stepwise decode vs the full forward, at full depth.  The two
 # differ only in the shapes of their GEMMs and reductions (B rows per decode
 # step, B x 68 in the full forward), so their sums run in another order,
@@ -140,6 +178,22 @@ TAU = 1.6449        # keeps 10% of N(0, 1): the reference's SyncConfig.density
 YCSB_ROWS, YCSB_WORDS, REPLICAS = 10_000_000, 250, 3
 TIE_SHARE = 0.01
 MERGE_CHUNK = 1_000_000
+# phases 15-17: (a) and (d) at GRAD_BATCH x GRAD_SEQ, f32 with TF32 off;
+# (b) TRAIN_STEPS steps of train(); (c) FALL_STEPS steps on one batch.  (a):
+# the two paths differ in the recurrences' order of sums (WKV6_TOL,
+# RGLRU_TOL in one call); (d): the batch's mean is taken in two halves and
+# the GEMMs see half the rows.  Random full-width layers amplify any such
+# reordering, and some gradients are rounding noise around an exact 0, so
+# each leaf is gated at FLOOR_MULT x its own noise floor, which the same run
+# measures (train_grad_checks), or at TRAIN_GRAD_TOL (1e-5 for the loss)
+# where that floor is smaller.  A floor above FLOOR_CAP of a leaf's norm
+# fails the phase: a gate that wide would pass anything.
+GRAD_BATCH, GRAD_SEQ = 2, 64
+TRAIN_STEPS, FALL_STEPS, FALL_LR = 4, 5, 1e-5
+TRAIN_GRAD_TOL = 1e-3
+FLOOR_CAP = 0.1
+# phase 18: demo-100m, cut and resumed
+DEMO_STEPS, DEMO_CUT = 100, 50
 
 
 def fail(msg: str) -> None:
@@ -444,6 +498,127 @@ def phase_rglru(ops, rglru_scan_ref) -> dict:
     return kernel_entry("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
                         "src/repro/kernels/rglru_scan/rglru_scan.py:27", errs, timings["prefill"],
                         decode=timings["decode"])
+
+
+def wkv6_backward_bound(b: int, t: int, h: int, n: int) -> tuple[float, str]:
+    """Least time for one WKV6 backward: r/k/v/w/dy, u, s0 and ds_fin read
+    once; dr/dk/dv/dw, du and ds0 written once; 14 N^2 operations per step
+    and head (the state and dS recurrences, 3 each; the contractions into
+    dr, dk, dv and dw, 2 each; the O(N) terms left out)."""
+    nbytes = 4 * (9 * b * t * h * n + 2 * h * n + 3 * b * h * n * n)
+    return _bound(nbytes, 14 * b * h * t * n * n)
+
+
+def rglru_backward_bound(b: int, t: int, d: int) -> tuple[float, str]:
+    """Least time for one RG-LRU backward: a, h, dh, h0 and dh_last read
+    once, da, db and dh0 written once; an add and two multiplies per element
+    and step."""
+    return _bound(4 * (5 * b * t * d + 3 * b * d), 3 * b * t * d)
+
+
+def time_backward(name, kernel, plain, sets, shape, bound) -> dict:
+    """Device time of ``kernel`` from a CUDA-graph replay over the input
+    ``sets`` (each far beyond the 50 MB L2), and of the plain reverse sweep
+    from CUDA events around one eager call (its T steps are thousands of
+    small launches, too many to capture)."""
+    import torch
+
+    ms = device_ms([functools.partial(kernel, *s) for s in sets], reps=3)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain(*sets[0])
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    bound_ms, bound_by = bound(*shape)
+    print(f"  {name} {shape}: kernel {ms:.4f} ms on the device over {len(sets)} input sets, "
+          f"plain {plain_ms:.3f} ms (one eager call), bound {bound_ms:.4f} ms ({bound_by}), "
+          f"{bound_ms / ms:.1%} of bound")
+    return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def check_grads(label: str, got, want, names, tol: float) -> list:
+    return [check_close(f"{label} {n}", g, w, tol) for n, g, w in zip(names, got, want)]
+
+
+def phase_wkv6_backward(ops, wkv6_backward_ref) -> dict:
+    """The WKV6 backward kernel vs the plain reverse sweep at the training
+    shape (s0 and ds_fin zero, as training gives them), the serving prefill,
+    a ragged T, w holding zeros, and head dim 16, each but the first with
+    nonzero s0 and ds_fin; its time at the training and prefill shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    names = ("dr", "dk", "dv", "dw", "du", "ds0")
+
+    def inputs(b, t, h, n, zero=False, w_zeros=False):
+        args = wkv6_inputs(gen, b, t, h, n, zero_state=zero, w_zeros=w_zeros)
+        dy = torch.randn((b, t, h, n), generator=gen, device="cuda")
+        ds_fin = torch.randn((b, h, n, n), generator=gen, device="cuda")
+        return (*args, dy, ds_fin.zero_() if zero else ds_fin)
+
+    errs, timings = [], {}
+    cases = [("training", TRAIN_WKV_SHAPE, True, False),
+             ("prefill", (BATCH, PROMPT_LEN, 64, 64), False, False),
+             ("ragged T", (BATCH, PROMPT_LEN + 1, 64, 64), False, False),
+             ("w in [0, 1) with zeros", (BATCH, PROMPT_LEN, 64, 64), False, True),
+             ("smoke head dim 16", (3, 37, 5, 16), False, False)]
+    for label, shape, zero, w_zeros in cases:
+        args = inputs(*shape, zero=zero, w_zeros=w_zeros)
+        got = ops.wkv6_backward(*args)
+        torch.cuda.synchronize()
+        errs += check_grads(f"wkv6_backward {label} {shape}", got, wkv6_backward_ref(*args),
+                            names, WKV6_BWD_TOL)
+        del got
+        if label in ("training", "prefill"):
+            sets = [args] + [inputs(*shape, zero=zero) for _ in range(2)]
+            timings[label] = time_backward(f"wkv6_backward {label}", ops.wkv6_backward,
+                                           wkv6_backward_ref, sets, shape, wkv6_backward_bound)
+            del sets
+        del args
+        torch.cuda.empty_cache()
+    return kernel_entry("wkv6_backward", "src/repro_torch/csrc/wkv6_backward.cu",
+                        "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:28", errs, timings["training"],
+                        prefill=timings["prefill"], backward_of="wkv6",
+                        note=BACKWARD_NOTE % "src/repro/models/rwkv6.py:96 (wkv6_chunked)")
+
+
+def phase_rglru_backward(ops, rglru_scan_ref, rglru_scan_backward_ref) -> dict:
+    """The RG-LRU backward kernel vs the plain reverse scan at the training
+    shape, the serving prefill and an odd shape, with nonzero h0 and
+    dh_last; its time at the training and prefill shapes."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+
+    def inputs(b, t, d):
+        a, bterm, h0 = rglru_inputs(gen, b, t, d)
+        h, _ = rglru_scan_ref(a, bterm, h0)
+        return (a, h, h0, torch.randn((b, t, d), generator=gen, device="cuda"),
+                torch.randn((b, d), generator=gen, device="cuda"))
+
+    errs, timings = [], {}
+    for label, shape in (("training", TRAIN_RG_SHAPE), ("prefill", (BATCH, PROMPT_LEN, 4096)),
+                         ("odd shape", (2, 37, 96))):
+        args = inputs(*shape)
+        got = ops.rglru_scan_backward(*args)
+        torch.cuda.synchronize()
+        errs += check_grads(f"rglru_scan_backward {label} {shape}", got,
+                            rglru_scan_backward_ref(*args), ("da", "db", "dh0"), RGLRU_TOL)
+        if label != "odd shape":
+            sets = [args] + [inputs(*shape) for _ in range(2)]
+            timings[label] = time_backward(f"rglru_scan_backward {label}",
+                                           ops.rglru_scan_backward, rglru_scan_backward_ref,
+                                           sets, shape, rglru_backward_bound)
+            del sets
+        del args, got
+        torch.cuda.empty_cache()
+    return kernel_entry("rglru_scan_backward", "src/repro_torch/csrc/rglru_scan_backward.cu",
+                        "src/repro/kernels/rglru_scan/rglru_scan.py:27", errs, timings["training"],
+                        prefill=timings["prefill"], backward_of="rglru_scan",
+                        note=BACKWARD_NOTE % "src/repro/models/rglru.py:66 (associative_scan)")
 
 
 def same_bits(name: str, got, want) -> float:
@@ -1012,6 +1187,374 @@ def run_granite(dev, tcfg, counters) -> dict:
                        {name: 0 for name in counters})
 
 
+@contextlib.contextmanager
+def plain_mixers(f64: bool = False):
+    """Within the block the models call the plain recurrences (autograd
+    through them on the card) in place of the kernel wrappers; with
+    ``f64`` the recurrences run in float64 between casts of their inputs
+    and outputs (the rest of the model stays as it is)."""
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
+    from repro_torch.models import rglru, rwkv6
+
+    def wide(fn):
+        return lambda *xs: tuple(o.float() for o in fn(*(x.double() for x in xs)))
+
+    real = rwkv6.wkv6, rglru.rglru_scan
+    rwkv6.wkv6, rglru.rglru_scan = ((wide(wkv6_ref), wide(rglru_scan_ref)) if f64
+                                    else (wkv6_ref, rglru_scan_ref))
+    try:
+        yield
+    finally:
+        rwkv6.wkv6, rglru.rglru_scan = real
+
+
+def data_batch(cfg, batch: int, seq: int, dev, step: int = 0) -> dict:
+    from repro_torch.data.pipeline import DataConfig, make_batch
+
+    return make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
+                                 seed=1), step, dev)
+
+
+def counted(counters: dict, run):
+    """``run()`` with every kernel count set to 0 just before; returns its
+    result and the counts just after."""
+    for fn in counters.values():
+        fn.launches = 0
+    out = run()
+    return out, {name: fn.launches for name, fn in counters.items()}
+
+
+def grad_errors(params, got, want) -> dict[str, float]:
+    """|got - want| / |want| for every leaf, by key."""
+    from repro_torch.tree import leaf_paths
+
+    return {key: ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+            for (key, _), a, b in zip(leaf_paths(params), got, want)}
+
+
+def worst_text(errs: dict[str, float], n: int = 3) -> str:
+    return ", ".join(f"{key} {e:.3e}" for key, e in sorted(errs.items(), key=lambda kv: -kv[1])[:n])
+
+
+def compare_grads(label: str, cfg, params, got, want, limits: dict[str, float],
+                  kernel_mixer: str) -> None:
+    """Every leaf's gradient finite and within its own limit (a share of its
+    norm of ``want``'s); with ``kernel_mixer``, every leaf of such a block's
+    mixer nonzero in both."""
+    import torch
+
+    from repro_torch.tree import leaf_paths
+
+    errs = grad_errors(params, got, want)
+    blocks = cfg.block_list()
+    mixer_leaves = 0
+    for (key, _), a, b in zip(leaf_paths(params), got, want):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{label} {key}: a non-finite gradient")
+        parts = key.split("/")
+        if (kernel_mixer and parts[0] == "layers" and parts[2] == "mixer"
+                and blocks[int(parts[1])].mixer == kernel_mixer):
+            if a.abs().max().item() == 0 or b.abs().max().item() == 0:
+                fail(f"{label} {key}: zero gradient through a {kernel_mixer} mixer")
+            mixer_leaves += 1
+    share = {key: e / limits[key] for key, e in errs.items()}
+    nearest = sorted(share, key=share.get, reverse=True)[:3]
+    print(f"  {label}: {len(errs)} leaves, the worst {worst_text(errs)}; nearest their limits "
+          + ", ".join(f"{key} {errs[key]:.3e} of {limits[key]:.3e}" for key in nearest)
+          + (f"; {mixer_leaves} {kernel_mixer}-mixer leaves nonzero on both paths"
+             if kernel_mixer else ""))
+    over = [key for key in nearest if share[key] > 1]
+    if over:
+        fail(f"{label} {over[0]}: gradient {errs[over[0]]:.3e} of its norm from the other "
+             f"path's (> {limits[over[0]]:.3e})")
+
+
+def train_grad_checks(tag, cfg, dev, counters, kernels) -> None:
+    """(a) the gradients through the kernels against the plain recurrences
+    and (d) microbatches 1 against 2, f32 compute, GRAD_BATCH x GRAD_SEQ, on
+    weights drawn for the check and released after it.  Both are gated by a
+    noise floor measured first, with no kernel and no microbatching, as the
+    larger of two differences from the plain f32 path's gradients: the same
+    path with the batch's sequences swapped (each weight's gradient sums
+    its rows in another order), and the same path with the recurrences in
+    f64 (their own f32 rounding; it is large where the exact value is 0:
+    the group norm's backward leaves dy orthogonal to y in each head, and y
+    is parallel to v at t = 0, so v . dy, and with it dr, dk and du there,
+    are rounding noise in f32).  Each leaf has its own floor and passes
+    within FLOOR_MULT x it, or within TRAIN_GRAD_TOL where that is larger;
+    a floor above FLOOR_CAP fails the phase.  ``kernels``
+    names the forward and backward counters of the model's mixer kernel, or
+    is None for a model that runs none (then (a) has nothing to compare).
+    An MoE model is checked at capacity factor n_experts / top_k (capacity
+    = t, nothing drops): capacity is per call, so at the published factor
+    the order of the tokens and the split into microbatches decide which
+    assignments drop, a different result rather than a rounding."""
+    import torch
+
+    from repro_torch.models.model import init_params
+    from repro_torch.train.train_step import TrainConfig, grads_and_loss
+
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        print(f"{tag} gradient checks at capacity factor {cfg.moe.capacity_factor} (nothing "
+              "drops); (b) and (c) train at the published one")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    f32 = TrainConfig(compute_dtype=torch.float32)
+    batch = data_batch(cfg, GRAD_BATCH, GRAD_SEQ, dev)
+    mixer = "" if kernels is None else ("rwkv" if kernels[0] == "wkv6" else "rglru")
+    n_kernel = sum(blk.mixer == mixer for blk in cfg.block_list())
+
+    def loss_rel(a, b) -> float:
+        return abs(a.item() - b.item()) / abs(b.item())
+
+    with plain_mixers():
+        (gp, lp), counts = counted(counters, lambda: grads_and_loss(cfg, f32, params, batch))
+        if any(counts.values()):
+            fail(f"{cfg.name}: the plain path launched {counts}")
+        gs, ls = grads_and_loss(cfg, f32, params, {k: v.flip(0) for k, v in batch.items()})
+    swap = grad_errors(params, gs, gp)
+    del gs
+    loss_floor = loss_rel(ls, lp)
+    wide = {}
+    if n_kernel:
+        with plain_mixers(f64=True):
+            g64, l64 = grads_and_loss(cfg, f32, params, batch)
+        wide = grad_errors(params, gp, g64)
+        loss_floor = max(loss_floor, loss_rel(lp, l64))
+        del g64
+    floors = {key: max(e, wide.get(key, 0.0)) for key, e in swap.items()}
+    limits = {key: max(TRAIN_GRAD_TOL, FLOOR_MULT * f) for key, f in floors.items()}
+    loss_limit = max(1e-5, FLOOR_MULT * loss_floor)
+    wider = sorted((key for key in limits if limits[key] > TRAIN_GRAD_TOL),
+                   key=limits.get, reverse=True)
+    print(f"{tag} noise floor of the plain f32 path, batch {GRAD_BATCH} x {GRAD_SEQ}: sequences "
+          f"swapped, the worst {worst_text(swap)}; recurrences in f64, the worst "
+          + (worst_text(wide) if wide else "(no recurrence)")
+          + f"; loss {loss_floor:.3e}; limits: loss {loss_limit:.3e}, gradients per leaf "
+          f"{TRAIN_GRAD_TOL:g} of its norm, or {FLOOR_MULT:g} x its floor for {len(wider)} of "
+          f"{len(limits)} leaves" + (f" (the widest {', '.join(f'{k} {limits[k]:.3e}' for k in wider[:3])})"
+                                     if wider else ""))
+    worst_floor = max(floors, key=floors.get)
+    if max(floors[worst_floor], loss_floor) > FLOOR_CAP:
+        fail(f"{cfg.name}: noise floor {floors[worst_floor]:.3e} at {worst_floor}, loss "
+             f"{loss_floor:.3e} (> {FLOOR_CAP:g}): no gate that wide tells a fault from noise")
+
+    if kernels is not None:
+        (gk, lk), counts = counted(counters, lambda: grads_and_loss(cfg, f32, params, batch))
+        want = {name: 0 for name in counters} | {kernels[0]: 2 * n_kernel, kernels[1]: n_kernel}
+        if counts != want:
+            fail(f"{cfg.name} (a): kernel launches {counts}, expected {want}")
+        err = loss_rel(lk, lp)
+        print(f"{tag} (a) gradients through the kernels vs the plain recurrences: loss "
+              f"{lk.item():.6f} vs {lp.item():.6f} ({err:.3e}); launches {counts_text(counts)}")
+        if err > loss_limit:
+            fail(f"{cfg.name} (a): loss {err:.3e} from the plain path's (> {loss_limit:.3e})")
+        compare_grads(f"{tag} (a)", cfg, params, gk, gp, limits, mixer)
+        del gp
+        torch.cuda.empty_cache()
+    else:
+        gk, lk = gp, lp
+    g2, l2 = grads_and_loss(cfg, dataclasses.replace(f32, microbatches=2), params, batch)
+    err = loss_rel(l2, lk)
+    print(f"{tag} (d) microbatches 1 vs 2: loss {lk.item():.6f} vs {l2.item():.6f} ({err:.3e})")
+    if err > loss_limit:
+        fail(f"{cfg.name} (d): loss {err:.3e} apart (> {loss_limit:.3e})")
+    compare_grads(f"{tag} (d)", cfg, params, g2, gk, limits, mixer)
+    del g2, gk, params
+    torch.cuda.empty_cache()
+
+
+def counts_text(counts: dict) -> str:
+    return ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
+
+
+def profile_step(run) -> tuple[float | None, dict]:
+    """Device time of ``run()`` by kernel name (ms) from torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    by_name = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA}
+    total = sum(by_name.values())
+    return (total if total > 0 else None), by_name
+
+
+def run_training(tag, arch, n_layers, batch, seq, dev, counters, kernels) -> dict:
+    """Phases 15-17: ``arch`` at full width and ``n_layers`` layers, each
+    check on an emptied card: (a) and (d), then (b) TRAIN_STEPS steps of
+    ``launch.train.train()`` at batch x seq (the counted main path), then (c)
+    FALL_STEPS steps on one repeated batch, the last one profiled."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.train_step import TrainConfig, build_train_step
+
+    memory_line(tag, "start")
+    full = get_config(arch)
+    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
+    n = param_count(cfg)
+    print(f"{tag} {arch} training at full width, {cfg.n_layers} of {full.n_layers} layers "
+          f"({', '.join(b.mixer + '+' + b.ffn for b in cfg.block_list()[:3])}"
+          f"{', ...' if cfg.n_layers > 3 else ''}): {n:,} parameters; f32 params + grads + m + v "
+          f"= 16 B each = {16 * n / 1e9:.1f} GB (the whole model: {16 * param_count(full) / 1e9:.1f} GB)")
+    train_grad_checks(tag, cfg, dev, counters, kernels)
+
+    # ---- (b) the main path: train() at the full shape, every count read
+    tcfg = TrainConfig()            # the reference's defaults: bf16 compute, lr 3e-4 after 100 steps
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    hist, counts = counted(counters, lambda: train(cfg, tcfg, data, TRAIN_STEPS, seed=0,
+                                                   device=dev))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_mixer = 0
+    want = {name: 0 for name in counters}
+    if kernels is not None:
+        mixer = "rwkv" if kernels[0] == "wkv6" else "rglru"
+        n_mixer = sum(blk.mixer == mixer for blk in cfg.block_list())
+        want |= {kernels[0]: 2 * n_mixer * TRAIN_STEPS, kernels[1]: n_mixer * TRAIN_STEPS}
+    if counts != want:
+        fail(f"{cfg.name} (b): kernel launches over {TRAIN_STEPS} steps {counts}, expected {want}")
+    losses = [r["loss"] for r in hist]
+    if len(hist) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"{cfg.name} (b): losses {losses}")
+    steady = statistics.median(r["dt"] for r in hist[1:])
+    tokens = batch * seq
+    print(f"{tag} (b) train(): {TRAIN_STEPS} steps at batch {batch} x {seq}, {tcfg.compute_dtype} "
+          f"compute, remat: losses {', '.join(f'{x:.4f}' for x in losses)}; step times "
+          f"{', '.join('%.1f' % (r['dt'] * 1e3) for r in hist)} ms (the first warms up); "
+          f"steady {steady * 1e3:.1f} ms/step, {tokens / steady:.0f} tokens/s; peak device "
+          f"memory {peak_gb:.2f} GB; launches {counts_text(counts)} "
+          f"(per step: forward + remat recompute {2 * n_mixer}, backward {n_mixer})")
+    torch.cuda.empty_cache()
+
+    # ---- (c) the loss falls on one repeated batch; the last step profiled.
+    # Adam's first steps move each weight by about lr * sign(g), coherently
+    # along a 4096-wide input: a layer's output moves by ~lr * |x|_1, ~3e3 lr
+    # here, so the rate must stay far below the reference's 3e-4 peak
+    ctcfg = TrainConfig(optim=AdamWConfig(lr=FALL_LR, warmup_steps=0, total_steps=100))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adamw_init(params, ctcfg.optim)
+    step = build_train_step(cfg, ctcfg, dev)
+    one = data_batch(cfg, batch, seq, dev)
+    fall, walls = [], []
+    for _ in range(FALL_STEPS - 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fall.append(float(step(params, opt, one)["loss"]))
+        walls.append(time.perf_counter() - t0)
+    dev_ms, by_name = profile_step(lambda: fall.append(float(step(params, opt, one)["loss"])))
+    if not (all(map(math.isfinite, fall)) and fall[-1] < fall[0]):
+        fail(f"{cfg.name} (c): the loss does not fall on a repeated batch: {fall}")
+    wall_ms = statistics.median(walls[1:]) * 1e3
+    print(f"{tag} (c) {FALL_STEPS} steps on one batch, lr {FALL_LR:g}: losses "
+          f"{', '.join(f'{x:.4f}' for x in fall)}")
+    kernel_ms = {}
+    if dev_ms is None:
+        print("  device time not measured (the profiler saw no device activity)")
+    else:
+        print(f"  one step: {dev_ms:.2f} ms of device time (torch.profiler) vs {wall_ms:.2f} ms "
+              f"wall unprofiled: device busy {dev_ms / wall_ms:.1%}")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"    {ms:9.3f} ms  {name[:100]}")
+        marks = {"wkv6_forward_kernel": "wkv6", "wkv6_backward_kernel": "wkv6_backward",
+                 "rglru_scan_kernel": "rglru_scan", "rglru_scan_backward_kernel": "rglru_scan_backward"}
+        for name, ms in by_name.items():
+            for mark, kernel in marks.items():
+                if mark in name:
+                    kernel_ms[kernel] = kernel_ms.get(kernel, 0.0) + ms
+        if kernel_ms:
+            print("  the port's kernels in that step: " + ", ".join(
+                f"{k} {ms:.2f} ms ({ms / dev_ms:.2%})" for k, ms in kernel_ms.items()))
+    del params, opt, step, one
+    torch.cuda.empty_cache()
+    memory_line(tag, "end")
+    return {"launches": counts, "step_ms": steady * 1e3, "tokens_per_s": tokens / steady,
+            "peak_gb": peak_gb, "device_ms": dev_ms, "wall_ms": wall_ms, "kernel_ms": kernel_ms}
+
+
+def run_demo(dev, counters) -> None:
+    """Phase 18: demo-100m, the model of examples/train_100m.py, trained
+    DEMO_STEPS steps through train(); the loss must fall.  The same run cut
+    at DEMO_CUT (a checkpoint), resumed by a fresh train(), must end bit for
+    bit where the uninterrupted one does: its losses and its last
+    checkpoint's files, under torch.use_deterministic_algorithms."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import Block, ModelConfig
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import param_count
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.train_step import TrainConfig
+
+    # examples/train_100m.py:49-53
+    cfg = ModelConfig(name="demo-100m", family="dense", n_layers=8, d_model=640, n_heads=10,
+                      n_kv_heads=5, d_ff=2560, vocab_size=32_000,
+                      blocks_pattern=(Block("attn", "dense"),))
+    tcfg = TrainConfig(optim=AdamWConfig(lr=6e-4, total_steps=DEMO_STEPS, warmup_steps=20))
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=256, global_batch=8, seed=0)
+    print(f"[18] {cfg.name}: {param_count(cfg):,} parameters, batch 8 x 256, "
+          f"{tcfg.compute_dtype} compute, lr 6e-4 with 20 warm-up steps")
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            def run(name, steps):
+                return train(cfg, tcfg, data, steps, ckpt_dir=f"{tmp}/{name}",
+                             ckpt_every=DEMO_CUT, seed=0, device=dev)
+
+            whole, counts = counted(counters, lambda: run("whole", DEMO_STEPS))
+            first = run("cut", DEMO_CUT)
+            second = run("cut", DEMO_STEPS)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        files = {}
+        for name in ("whole", "cut"):
+            with open(f"{tmp}/{name}/step_{DEMO_STEPS}/meta.json") as f:
+                meta = json.load(f)
+            files[name] = [np.load(f"{tmp}/{name}/step_{DEMO_STEPS}/{leaf['file']}").tobytes()
+                           for leaf in meta["leaves"]]
+    if any(counts.values()):
+        fail(f"{cfg.name}: kernel launches {counts}, expected none")
+    losses = [r["loss"] for r in whole]
+    head, tail = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    steady = statistics.median(r["dt"] for r in whole[1:])
+    print(f"[18] {DEMO_STEPS} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the "
+          f"first 10 {head:.4f}, of the last 10 {tail:.4f}); {steady * 1e3:.2f} ms/step, "
+          f"{8 * 256 / steady:.0f} tokens/s")
+    if not (all(map(math.isfinite, losses)) and tail < head - 0.5):
+        fail(f"{cfg.name}: the loss does not fall: {head:.4f} -> {tail:.4f}")
+    resumed = first + second
+    same = [(a["loss"], a["grad_norm"], a["lr"]) == (b["loss"], b["grad_norm"], b["lr"])
+            for a, b in zip(whole, resumed)]
+    if [r["step"] for r in resumed] != list(range(1, DEMO_STEPS + 1)) or not all(same):
+        fail(f"{cfg.name}: the run resumed at step {DEMO_CUT} differs from the uninterrupted one "
+             f"at steps {[i + 1 for i, ok in enumerate(same) if not ok][:10]}")
+    if files["whole"] != files["cut"]:
+        fail(f"{cfg.name}: the step-{DEMO_STEPS} checkpoints differ")
+    notes = sorted({str(w.message)[:120] for w in caught})
+    print(f"[18] saved at step {DEMO_CUT}, resumed by a fresh train(): steps "
+          f"{DEMO_CUT + 1}-{DEMO_STEPS} bit for bit (loss, grad norm, lr) and the step-"
+          f"{DEMO_STEPS} checkpoint's {len(files['whole'])} files byte for byte, under "
+          f"torch.use_deterministic_algorithms(True, warn_only=True); its warnings: "
+          f"{notes or 'none'}")
+
+
 def memory_line(tag: str, when: str) -> None:
     import torch
 
@@ -1323,9 +1866,9 @@ def main() -> None:
     from repro_torch.kernels.crdt_merge import ops as merge_ops
     from repro_torch.kernels.crdt_merge.ref import crdt_merge_ref
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
-    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_backward_ref, rglru_scan_ref
     from repro_torch.kernels.rwkv6_wkv import ops as wkv6_ops
-    from repro_torch.kernels.rwkv6_wkv.ref import wkv6_ref
+    from repro_torch.kernels.rwkv6_wkv.ref import wkv6_backward_ref, wkv6_ref
     from repro_torch.kernels.whitedata_filter import ops as filter_ops
     from repro_torch.kernels.whitedata_filter.ref import whitedata_filter_ref
     from repro_torch.train.train_step import TrainConfig
@@ -1347,10 +1890,15 @@ def main() -> None:
     # ---- 3. kernels vs plain
     print("[3] kernels vs plain PyTorch on the card")
     entries = {"wkv6": phase_wkv6(wkv6_ops, wkv6_ref),
-               "rglru_scan": phase_rglru(rglru_ops, rglru_scan_ref)}
+               "wkv6_backward": phase_wkv6_backward(wkv6_ops, wkv6_backward_ref),
+               "rglru_scan": phase_rglru(rglru_ops, rglru_scan_ref),
+               "rglru_scan_backward": phase_rglru_backward(rglru_ops, rglru_scan_ref,
+                                                           rglru_scan_backward_ref)}
     filter_errs = phase_filter_small(filter_ops, whitedata_filter_ref, dev)
     merge_errs = phase_merge_small(merge_ops, crdt_merge_ref, dev)
-    counters = {"wkv6": wkv6_ops.wkv6, "rglru_scan": rglru_ops.rglru_scan,
+    counters = {"wkv6": wkv6_ops.wkv6, "wkv6_backward": wkv6_ops.wkv6_backward,
+                "rglru_scan": rglru_ops.rglru_scan,
+                "rglru_scan_backward": rglru_ops.rglru_scan_backward,
                 "whitedata_filter": filter_ops.whitedata_filter,
                 "crdt_merge": merge_ops.crdt_merge}
 
@@ -1391,6 +1939,27 @@ def main() -> None:
         torch.cuda.empty_cache()
         print(f"  released the {arch} weights: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
               f"still allocated; {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 15-17. training at full width through train(), each on an emptied card
+    for tag, arch, layers, (b, s_len), kernels in (
+            ("[15]", RWKV, 8, (2, 4096), ("wkv6", "wkv6_backward")),
+            ("[16]", RG, 3, (1, 4096), ("rglru_scan", "rglru_scan_backward")),
+            ("[17]", MOE, None, (1, 4096), None)):
+        t_phase = time.perf_counter()
+        res = run_training(tag, arch, layers, b, s_len, dev, counters, kernels)
+        if kernels is not None:
+            for name in kernels:
+                entries[name]["train_launches"] = res["launches"][name]
+                entries[name]["train_step_ms"] = res["kernel_ms"].get(name)
+            entries[kernels[1]]["launches"] = res["launches"][kernels[1]]
+        torch.cuda.empty_cache()
+        print(f"  {tag} took {time.perf_counter() - t_phase:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
+    # ---- 18. demo-100m: the loss falls; a resumed run matches
+    t_phase = time.perf_counter()
+    run_demo(dev, counters)
+    print(f"  [18] took {time.perf_counter() - t_phase:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

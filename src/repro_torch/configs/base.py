@@ -58,6 +58,8 @@ class ModelConfig:
     rwkv_head_dim: int = 64
     rglru_conv_width: int = 4
     rglru_lru_width: int = 0      # 0 -> d_model
+    # training: recompute each block's activations in the backward
+    remat: bool = True
 
     @property
     def resolved_head_dim(self) -> int:

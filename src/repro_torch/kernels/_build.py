@@ -25,7 +25,9 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 # library name -> source under csrc/
 SOURCES: dict[str, str] = {
     "wkv6": "wkv6.cu",
+    "wkv6_backward": "wkv6_backward.cu",
     "rglru_scan": "rglru_scan.cu",
+    "rglru_scan_backward": "rglru_scan_backward.cu",
     "whitedata_filter": "whitedata_filter.cu",
     "crdt_merge": "crdt_merge.cu",
 }

@@ -1,7 +1,12 @@
-"""Model-facing RG-LRU scan: the hand-written CUDA kernel on the card, the
-plain PyTorch recurrence (``ref.py``) on the CPU.
+"""Model-facing RG-LRU scan: the hand-written CUDA kernels on the card, the
+plain PyTorch recurrence and its reverse sweep (``ref.py``) on the CPU.
 
 Counterpart of ``repro/kernels/rglru_scan/ops.py``.
+
+``rglru_scan`` is differentiable: where grad is on and an input requires
+it, it runs as a ``torch.autograd.Function`` that saves a and the f32 h and
+whose backward is ``rglru_scan_backward`` (the backward kernel on the
+card).  Otherwise, as under ``torch.inference_mode``, it saves nothing.
 """
 
 from __future__ import annotations
@@ -12,24 +17,113 @@ import functools
 import torch
 
 from .. import _build
-from .ref import rglru_scan_ref
+from .ref import rglru_scan_backward_ref, rglru_scan_ref
 
-__all__ = ["rglru_scan", "rglru_scan_ref"]
+__all__ = ["rglru_scan", "rglru_scan_backward", "rglru_scan_ref", "rglru_scan_backward_ref"]
 
 
 @functools.cache
-def _kernel():
-    fn = _build.load("rglru_scan").rglru_scan_forward
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+def _kernel(lib: str, fn_name: str, n_ptrs: int):
+    fn = getattr(_build.load(lib), fn_name)
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _error_string(code: int) -> str:
-    fn = _build.load("rglru_scan").rglru_scan_error_string
+def _error_string(lib: str, code: int) -> str:
+    fn = getattr(_build.load(lib), f"{lib}_error_string")
     fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_char_p
     return fn(code).decode()
+
+
+def _check_shapes(a, b, h0) -> None:
+    bsz, t, d = a.shape
+    if b.shape != a.shape:
+        raise ValueError(f"b has shape {tuple(b.shape)}, a has {tuple(a.shape)}")
+    if h0.shape != (bsz, d):
+        raise ValueError(f"h0 has shape {tuple(h0.shape)}, expected {(bsz, d)}")
+    if min(bsz, t, d) < 1:
+        raise ValueError(f"empty input: (B, T, D) = {(bsz, t, d)}")
+
+
+def _on_cpu(args) -> bool:
+    """True when every tensor lies on the CPU; False when all lie on one
+    CUDA device and the kernels take them; raises otherwise."""
+    if all(x.device.type == "cpu" for x in args):
+        return True
+    dev = args[0].device
+    if any(x.device != dev for x in args) or dev.type != "cuda":
+        raise ValueError(
+            "rglru_scan takes all tensors on the CPU or all on one CUDA device; got "
+            + ", ".join(str(x.device) for x in args)
+        )
+    if any(x.dtype != torch.float32 for x in args):
+        raise TypeError("the rglru_scan kernels take float32 tensors only")
+    if not all(x.is_contiguous() for x in args):
+        raise ValueError("the rglru_scan kernels take contiguous tensors only")
+    return False
+
+
+def _launch(lib: str, fn_name: str, ptrs, bsz: int, t: int, d: int, device) -> None:
+    with torch.cuda.device(device):
+        rc = _kernel(lib, fn_name, len(ptrs))(
+            *(x.data_ptr() for x in ptrs), bsz, t, d,
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{lib} kernel launch failed: {_error_string(lib, rc)} ({rc})")
+
+
+def _forward(a, b, h0) -> tuple[torch.Tensor, torch.Tensor]:
+    if _on_cpu((a, b, h0)):
+        return rglru_scan_ref(a, b, h0)
+    h = torch.empty_like(a)
+    h_last = torch.empty_like(h0)
+    _launch("rglru_scan", "rglru_scan_forward", (a, b, h0, h, h_last), *a.shape, a.device)
+    rglru_scan.launches += 1
+    return h, h_last
+
+
+def rglru_scan_backward(a, h, h0, dh, dh_last) -> tuple[torch.Tensor, ...]:
+    """Gradients (da, db, dh0) of ``rglru_scan(a, b, h0)``, whose output was
+    ``h``, given dh (B, T, D) and dh_last (B, D).  CPU tensors take the plain
+    reverse scan; CUDA tensors launch the backward kernel, which takes
+    contiguous float32 inputs."""
+    _check_shapes(a, h, h0)
+    if dh.shape != a.shape or dh_last.shape != h0.shape:
+        raise ValueError(
+            f"dh {tuple(dh.shape)} / dh_last {tuple(dh_last.shape)} do not match h "
+            f"{tuple(a.shape)} / h0 {tuple(h0.shape)}"
+        )
+    args = (a, h, h0, dh, dh_last)
+    if _on_cpu(args):
+        return rglru_scan_backward_ref(*args)
+    da, db, dh0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
+    _launch("rglru_scan_backward", "rglru_scan_backward", (*args, da, db, dh0), *a.shape,
+            a.device)
+    rglru_scan_backward.launches += 1
+    return da, db, dh0
+
+
+class _Scan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h, h_last = _forward(a, b, h0)
+        ctx.save_for_backward(a, h, h0)
+        ctx.b_dtype = b.dtype
+        return h, h_last
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dh, dh_last):
+        a, h, h0 = ctx.saved_tensors
+        dh = torch.zeros_like(h) if dh is None else dh.float().contiguous()
+        dh_last = torch.zeros_like(h0) if dh_last is None else dh_last.float().contiguous()
+        da, db, dh0 = rglru_scan_backward(a, h, h0, dh, dh_last)
+        need = ctx.needs_input_grad
+        return (da.to(a.dtype) if need[0] else None, db.to(ctx.b_dtype) if need[1] else None,
+                dh0.to(h0.dtype) if need[2] else None)
 
 
 def rglru_scan(
@@ -42,39 +136,13 @@ def rglru_scan(
     CPU tensors take the plain recurrence.  CUDA tensors launch the kernel,
     which takes contiguous float32 inputs; anything else raises.
     """
-    bsz, t, d = a.shape
-    if b.shape != a.shape:
-        raise ValueError(f"b has shape {tuple(b.shape)}, a has {tuple(a.shape)}")
-    if h0.shape != (bsz, d):
-        raise ValueError(f"h0 has shape {tuple(h0.shape)}, expected {(bsz, d)}")
-    if min(bsz, t, d) < 1:
-        raise ValueError(f"empty input: (B, T, D) = {(bsz, t, d)}")
-    args = (a, b, h0)
-    if all(x.device.type == "cpu" for x in args):
-        return rglru_scan_ref(*args)
-    if any(x.device != a.device for x in args) or a.device.type != "cuda":
-        raise ValueError(
-            "rglru_scan takes all tensors on the CPU or all on one CUDA device; got "
-            + ", ".join(str(x.device) for x in args)
-        )
-    if any(x.dtype != torch.float32 for x in args):
-        raise TypeError("the rglru_scan kernel takes float32 tensors only")
-    if not all(x.is_contiguous() for x in args):
-        raise ValueError("the rglru_scan kernel takes contiguous tensors only")
-
-    h = torch.empty_like(a)
-    h_last = torch.empty_like(h0)
-    with torch.cuda.device(a.device):
-        rc = _kernel()(
-            a.data_ptr(), b.data_ptr(), h0.data_ptr(), h.data_ptr(), h_last.data_ptr(),
-            bsz, t, d, torch.cuda.current_stream(a.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"rglru_scan kernel launch failed: {_error_string(rc)} ({rc})")
-    rglru_scan.launches += 1
-    return h, h_last
+    _check_shapes(a, b, h0)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (a, b, h0)):
+        return _Scan.apply(a, b, h0)
+    return _forward(a, b, h0)
 
 
-# kernel launches since the last reset; chip_smoke.py reads it around the
-# main path to show that every RG-LRU layer went through the kernel
+# kernel launches since the last reset; chip_smoke.py reads them around the
+# main path to show that every RG-LRU layer went through the kernels
 rglru_scan.launches = 0
+rglru_scan_backward.launches = 0

@@ -16,28 +16,11 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..device import resolve_device
+from ..tree import leaf_paths
 from .layers import Params
 from .model import init_params
 
 __all__ = ["params_from_jax"]
-
-
-def _leaf_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
-    """``(key, leaf)`` pairs keyed like ``repro.checkpoint._leaf_paths``: dict
-    keys in sorted order (as JAX flattens them), sequence indices, ``/``
-    between; ``None`` holds no leaf."""
-    if isinstance(tree, dict):
-        items = [(str(k), tree[k]) for k in sorted(tree)]
-    elif isinstance(tree, (list, tuple)):
-        items = [(str(i), v) for i, v in enumerate(tree)]
-    elif tree is None:
-        return []
-    else:
-        return [(prefix, tree)]
-    out = []
-    for k, v in items:
-        out.extend(_leaf_paths(v, f"{prefix}/{k}" if prefix else k))
-    return out
 
 
 def _jax_location(cfg: ModelConfig, layer: int) -> tuple[str, int | None]:
@@ -58,7 +41,7 @@ def params_from_jax(cfg: ModelConfig, tree: Any, *,
     (``model.cast_params_`` casts them for serving).  Raises
     ``ValueError`` on a missing or extra leaf, or a shape that differs."""
     device = resolve_device(device)
-    jax_leaves = dict(_leaf_paths(tree))
+    jax_leaves = dict(leaf_paths(tree))
     used: set[str] = set()
 
     def fetch(port_key: str, like: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ slice that will port it.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import Block, ModelConfig
 from ..device import resolve_device
@@ -202,11 +203,25 @@ def forward(
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> tuple[torch.Tensor, Params | None]:
     """``batch["tokens"]`` is (B, S).  Returns (logits (B, S, V) in
-    ``compute_dtype``, new_cache or None)."""
+    ``compute_dtype``, new_cache or None).
+
+    With ``cfg.remat``, grad enabled and no cache (a training forward), each
+    block runs under ``torch.utils.checkpoint``: its activations are freed
+    and recomputed in the backward, the per-block counterpart of the JAX
+    package's ``jax.checkpoint`` over each scanned superblock.  The values
+    are the same either way."""
     _check_ported(cfg)
     x = embed_apply(params["embed"], batch["tokens"], compute_dtype)
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
     new_layers = []
     for i, blk in enumerate(cfg.block_list()):
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(
+                lambda p, xx, blk=blk: _block_apply(cfg, blk, p, xx, None)[0],
+                params["layers"][i], x, use_reentrant=False,
+            )
+            new_layers.append(None)
+            continue
         c = cache["layers"][i] if cache is not None else None
         x, nc = _block_apply(cfg, blk, params["layers"][i], x, c)
         new_layers.append(nc)
