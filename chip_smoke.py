@@ -533,8 +533,8 @@ def time_backward(name, kernel, plain, sets, shape, bound) -> dict:
     plain_ms = start.elapsed_time(end)
     bound_ms, bound_by = bound(*shape)
     print(f"  {name} {shape}: kernel {ms:.4f} ms on the device over {len(sets)} input sets, "
-          f"plain {plain_ms:.3f} ms (one eager call), bound {bound_ms:.4f} ms ({bound_by}), "
-          f"{bound_ms / ms:.1%} of bound")
+          f"{ms / shape[1] * 1e3:.4f} us per step, plain {plain_ms:.3f} ms (one eager call), "
+          f"bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of bound")
     return {"shape": list(shape), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by}
 
@@ -582,7 +582,8 @@ def phase_wkv6_backward(ops, wkv6_backward_ref) -> dict:
     return kernel_entry("wkv6_backward", "src/repro_torch/csrc/wkv6_backward.cu",
                         "src/repro/kernels/rwkv6_wkv/rwkv6_wkv.py:28", errs, timings["training"],
                         prefill=timings["prefill"], backward_of="wkv6",
-                        note=BACKWARD_NOTE % "src/repro/models/rwkv6.py:96 (wkv6_chunked)")
+                        note=BACKWARD_NOTE % "src/repro/models/rwkv6.py:96 (wkv6_chunked)"
+                        + "; redesigned: row sums by warp shuffles, one barrier per chunk")
 
 
 def phase_rglru_backward(ops, rglru_scan_ref, rglru_scan_backward_ref) -> dict:

@@ -118,12 +118,17 @@ def _assert_close(got, want, tol, label):
 
 
 # the training shape's heads at T = 4096 (cut to 2 heads), the serving
-# prefill, ragged chunks (T = 1, 7, 513), head dim 16, and w with zeros
+# prefill, ragged chunks (T = 1, 7, 513), the edges of the per-chunk finish
+# and of the buffers' parities (one chunk, one chunk and a step, two
+# chunks: T = 8, 9, 16), head dim 16, and w with zeros
 BWD_CASES = [
     pytest.param((1, 4096, 2, 64), "decay", id="t4096"),
     pytest.param((8, 512, 64, 64), "decay", id="prefill"),
     pytest.param((2, 1, 4, 64), "decay", id="t1"),
     pytest.param((2, 7, 4, 64), "decay", id="ragged-t7"),
+    pytest.param((2, 8, 4, 64), "decay", id="t8-one-chunk"),
+    pytest.param((2, 9, 4, 64), "decay", id="t9-chunk-and-a-step"),
+    pytest.param((2, 16, 4, 64), "decay", id="t16-two-chunks"),
     pytest.param((2, 513, 8, 64), "decay", id="ragged-t513"),
     pytest.param((3, 37, 5, 16), "decay", id="head-dim-16-ragged"),
     pytest.param((2, 200, 8, 64), "zeros", id="w-zeros-subnormal"),
@@ -140,6 +145,19 @@ def test_backward_kernel_matches_plain(card, shape, w_kind):
     torch.cuda.synchronize()
     assert ops.wkv6_backward.launches == before + 1
     _assert_close(got, ops.wkv6_backward_ref(*args, dy, ds_fin), BWD_TOL, "kernel vs plain")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 513, 8, 64), (3, 37, 5, 16)])
+def test_backward_kernel_reruns_bit_identical(card, shape):
+    """The kernel sums in a fixed order (no atomics), so a second launch on
+    the same inputs gives the same bits in every gradient."""
+    args, dy, ds_fin = _grads_in(shape, 19, card)
+    first = ops.wkv6_backward(*args, dy, ds_fin)
+    second = ops.wkv6_backward(*args, dy, ds_fin)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dr", "dk", "dv", "dw", "du", "ds0"), first, second):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), f"{name} differs"
 
 
 @pytest.mark.gpu
