@@ -16,8 +16,10 @@ Phases, each of which fails the run (nonzero exit, no result line):
    against their plain reverse sweeps at the training shapes (2, 4096, 64,
    64) and (1, 4096, 4096) and the serving prefill's, WKV6's also at a
    ragged T = 513, with w holding zeros and with nonzero s0 and ds_fin;
-   the white-data filter and the CRDT merge also at small odd shapes, bit
-   for bit;
+   the RG-LRU scan forward also at the training shape, both RG-LRU
+   kernels at two D that are no multiple of their 32-channel tiles; the
+   white-data filter and the CRDT merge also at small odd shapes, bit for
+   bit;
 4. rwkv6-7b at full width and depth, on its f32 weights: prefill + stepwise
    decode against the full forward, in f32 and bf16 compute, each decode
    position gated against a multiple of the noise floor measured in the same
@@ -137,6 +139,11 @@ WKV6_BWD_TOL = 1e-4
 # the backward kernels' shapes on the training path (phases 15 and 16)
 TRAIN_WKV_SHAPE = (2, 4096, 64, 64)
 TRAIN_RG_SHAPE = (1, 4096, 4096)
+# the RG-LRU kernels' tiles are 32 channels wide, so a D that is no multiple
+# of 32 leaves a masked edge tile: of 4 channels at D = 100, copied 16 bytes
+# at a time; at D = 45, no multiple of 4, the copies are of 4 bytes
+RAGGED_RG_SHAPES = ((1, 33, 100), (2, 37, 45))
+RGLRU_REDESIGN = "redesigned: 32-channel tiles, cp.async ring, one pass"
 BACKWARD_NOTE = ("new, no Pallas counterpart: the reference differentiates %s with "
                  "autodiff; 'replaces' names the forward's TPU kernel")
 # prefill + stepwise decode vs the full forward, at full depth.  The two
@@ -465,15 +472,18 @@ def wkv6_limiter(ops, gen) -> list:
 
 
 def phase_rglru(ops, rglru_scan_ref) -> dict:
-    """RG-LRU scan vs plain at the recurrentgemma path's shapes, with a
-    nonzero h0 (library_ms: no single PyTorch call computes a stable linear
-    recurrence)."""
+    """RG-LRU scan vs plain at the recurrentgemma path's shapes (serving's
+    prefill and decode, training's), an odd shape and two whose D is no
+    multiple of the kernel's 32-channel tile, with a nonzero h0; its time
+    at the three path shapes (library_ms: no single PyTorch call computes a
+    stable linear recurrence)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     errs, timings = [], {}
     cases = [("prefill", (BATCH, PROMPT_LEN, 4096)), ("decode", (BATCH, 1, 4096)),
-             ("odd shape", (2, 37, 96))]
+             ("training", TRAIN_RG_SHAPE), ("odd shape", (2, 37, 96)),
+             *(("ragged tile", shape) for shape in RAGGED_RG_SHAPES)]
     for label, shape in cases:
         args = rglru_inputs(gen, *shape)
         h, h_last = ops.rglru_scan(*args)
@@ -481,7 +491,7 @@ def phase_rglru(ops, rglru_scan_ref) -> dict:
         h_ref, last_ref = rglru_scan_ref(*args)
         errs.append(check_close(f"rglru_scan {label} {shape} h", h, h_ref, RGLRU_TOL))
         errs.append(check_close(f"rglru_scan {label} {shape} h_T", h_last, last_ref, RGLRU_TOL))
-        if label in ("prefill", "decode"):
+        if label in ("prefill", "decode", "training"):
             timings[label] = time_kernel(
                 "rglru_scan " + label, ops.rglru_scan, rglru_scan_ref,
                 lambda *sh: rglru_inputs(gen, *sh), shape, rglru_input_bytes, rglru_bound)
@@ -497,7 +507,8 @@ def phase_rglru(ops, rglru_scan_ref) -> dict:
     errs.append(check_close("rglru_scan continuation h_T", last2, last_ref, RGLRU_TOL))
     return kernel_entry("rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
                         "src/repro/kernels/rglru_scan/rglru_scan.py:27", errs, timings["prefill"],
-                        decode=timings["decode"])
+                        decode=timings["decode"], training=timings["training"],
+                        note=RGLRU_REDESIGN)
 
 
 def wkv6_backward_bound(b: int, t: int, h: int, n: int) -> tuple[float, str]:
@@ -588,8 +599,9 @@ def phase_wkv6_backward(ops, wkv6_backward_ref) -> dict:
 
 def phase_rglru_backward(ops, rglru_scan_ref, rglru_scan_backward_ref) -> dict:
     """The RG-LRU backward kernel vs the plain reverse scan at the training
-    shape, the serving prefill and an odd shape, with nonzero h0 and
-    dh_last; its time at the training and prefill shapes."""
+    shape, the serving prefill, an odd shape and two whose D is no multiple
+    of the kernel's 32-channel tile, with nonzero h0 and dh_last; its time
+    at the training and prefill shapes."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -602,13 +614,14 @@ def phase_rglru_backward(ops, rglru_scan_ref, rglru_scan_backward_ref) -> dict:
 
     errs, timings = [], {}
     for label, shape in (("training", TRAIN_RG_SHAPE), ("prefill", (BATCH, PROMPT_LEN, 4096)),
-                         ("odd shape", (2, 37, 96))):
+                         ("odd shape", (2, 37, 96)),
+                         *(("ragged tile", shape) for shape in RAGGED_RG_SHAPES)):
         args = inputs(*shape)
         got = ops.rglru_scan_backward(*args)
         torch.cuda.synchronize()
         errs += check_grads(f"rglru_scan_backward {label} {shape}", got,
                             rglru_scan_backward_ref(*args), ("da", "db", "dh0"), RGLRU_TOL)
-        if label != "odd shape":
+        if label in ("training", "prefill"):
             sets = [args] + [inputs(*shape) for _ in range(2)]
             timings[label] = time_backward(f"rglru_scan_backward {label}",
                                            ops.rglru_scan_backward, rglru_scan_backward_ref,
@@ -619,7 +632,8 @@ def phase_rglru_backward(ops, rglru_scan_ref, rglru_scan_backward_ref) -> dict:
     return kernel_entry("rglru_scan_backward", "src/repro_torch/csrc/rglru_scan_backward.cu",
                         "src/repro/kernels/rglru_scan/rglru_scan.py:27", errs, timings["training"],
                         prefill=timings["prefill"], backward_of="rglru_scan",
-                        note=BACKWARD_NOTE % "src/repro/models/rglru.py:66 (associative_scan)")
+                        note=BACKWARD_NOTE % "src/repro/models/rglru.py:66 (associative_scan)"
+                        + "; " + RGLRU_REDESIGN)
 
 
 def same_bits(name: str, got, want) -> float:

@@ -34,8 +34,14 @@ def _inputs(shape, seed, device):
     return tuple(torch.from_numpy(x.astype(np.float32)).to(device) for x in arrays)
 
 
+# (1, 33, 100) and (2, 37, 45) end in a partial 32-channel tile; D = 45 is
+# no multiple of 4, so the kernels copy it 4 bytes at a time, not 16
+RAGGED = [(1, 33, 100), (2, 37, 45)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 512, 4096), (8, 1, 4096), (2, 37, 96), (3, 17, 64)])
+@pytest.mark.parametrize("shape", [(8, 512, 4096), (8, 1, 4096), (1, 4096, 4096), (2, 37, 96),
+                                   (3, 17, 64), *RAGGED])
 def test_kernel_matches_plain(card, shape):
     args = _inputs(shape, seed=11, device=card)
     before = ops.rglru_scan.launches
@@ -76,7 +82,7 @@ def _grads_in(shape, seed, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(1, 4096, 4096), (8, 512, 4096), (8, 1, 4096),
-                                   (2, 37, 96), (3, 17, 64)])
+                                   (2, 37, 96), (3, 17, 64), *RAGGED])
 def test_backward_kernel_matches_plain(card, shape):
     a, b, h0, dh, dh_last = _grads_in(shape, 13, card)
     h, _ = rglru_scan_ref(a, b, h0)
@@ -87,6 +93,63 @@ def test_backward_kernel_matches_plain(card, shape):
     for g, x in zip(got, ops.rglru_scan_backward_ref(a, h, h0, dh, dh_last)):
         scale = max(1.0, x.abs().max().item())
         assert (g - x).abs().max().item() <= BWD_TOL * scale
+
+
+def _both_kernels(shape, seed, device):
+    """The forward's and the backward's outputs on one set of inputs."""
+    a, b, h0, dh, dh_last = _grads_in(shape, seed, device)
+    h, h_last = ops.rglru_scan(a, b, h0)
+    return (h, h_last, *ops.rglru_scan_backward(a, h, h0, dh, dh_last))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 4096, 4096), (8, 512, 4096), (2, 37, 45)])
+def test_kernels_rerun_bit_identical(card, shape):
+    """Each channel's walk has one fixed order, so a second run on the same
+    inputs gives the same bits; a difference is a race in the staging ring."""
+    first = _both_kernels(shape, 19, card)
+    second = _both_kernels(shape, 19, card)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(8, 512, 4096), (2, 37, 45)])
+def test_kernels_leave_their_inputs_unchanged(card, shape):
+    inputs = _grads_in(shape, 23, card)
+    a, b, h0, dh, dh_last = inputs
+    h, _ = ops.rglru_scan(a, b, h0)
+    saved = [x.clone() for x in (*inputs, h)]
+    ops.rglru_scan(a, b, h0)
+    ops.rglru_scan_backward(a, h, h0, dh, dh_last)
+    torch.cuda.synchronize()
+    for x, y in zip((*inputs, h), saved):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_kernels_take_inputs_not_16_byte_aligned(card):
+    """Contiguous views that start 4 bytes into their storage: the kernels
+    copy them 4 bytes at a time and give the plain versions' values."""
+    shape = (2, 37, 96)
+    aligned = _grads_in(shape, 29, card)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=card)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        return view
+
+    a, b, h0, dh, dh_last = map(shifted, aligned)
+    h, h_last = ops.rglru_scan(a, b, h0)
+    got = (h, h_last, *ops.rglru_scan_backward(a, shifted(h), h0, dh, dh_last))
+    h_ref, last_ref = rglru_scan_ref(*aligned[:3])
+    want = (h_ref, last_ref, *ops.rglru_scan_backward_ref(aligned[0], h_ref, *aligned[2:]))
+    torch.cuda.synchronize()
+    for g, x in zip(got, want):
+        assert (g - x).abs().max().item() <= BWD_TOL * max(1.0, x.abs().max().item())
 
 
 @pytest.mark.gpu
