@@ -16,6 +16,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    against their plain reverse sweeps at the training shapes (2, 4096, 64,
    64) and (1, 4096, 4096) and the serving prefill's, WKV6's also at a
    ragged T = 513, with w holding zeros and with nonzero s0 and ds_fin;
+   both WKV6 kernels also at phase 19's share of a pod, (1, 4096, 64, 64);
    the RG-LRU scan forward also at the training shape, both RG-LRU
    kernels at two D that are no multiple of their 32-channel tiles; the
    white-data filter and the CRDT merge also at small odd shapes, bit for
@@ -80,13 +81,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
    flash attention and MoE dispatch, every kernel's count 0;
 18. demo-100m (``examples/train_100m.py``): 100 steps of ``train()`` at
    batch 8 x 256, the loss must fall; the same run saved at step 50 and
-   resumed by a fresh ``train()`` must match it bit for bit.
+   resumed by a fresh ``train()`` must match it bit for bit;
+19. rwkv6-7b across two pods: two ranks spawned on the card, joined over
+   gloo (``launch.mesh.run_local_ranks``), each training at full width and
+   2 layers on its 1 x 4096 rows of a 2 x 4096 global batch, bf16 compute,
+   remat: 4 steps of ``train()`` with geococo (density 0.10, chunk 2048,
+   min_leaf_size 4096, relay ring (1, 0)), then 2 with flat, the WKV6
+   counts read around each run in each rank (2 x 2 forward, 2 backward a
+   step).  Gated: finite losses; every pod's parameters bit-identical after
+   every step (``pods_agree``, from per-leaf checksums); the wire values
+   counted from the masks and the dense leaves equal to
+   ``estimate_sync_bytes`` (the wire model, which counts a (value, index)
+   pair a selection) over the grouped tree; after one geococo step
+   every filtered leaf's residual nonzero and different between the pods;
+   geococo at density 1.0 equal to flat from the same state.  Printed per
+   step: compute, the exchange's device and host (staging + gloo) parts,
+   AdamW, the bytes handed to gloo (the whole masked tensors: gloo's
+   all-reduce sums dense values on the host);
+20. geococo's chunked top-k (``topk_select``) over phase 9's gradient share,
+   one process, no exchange: its device time by CUDA events against its
+   bound (16 B an element), beside the white-data filter's.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13 and 15-18 each on an empty card after the phase
-before.
+released, and phases 11, 13 and 15-20 each on an empty card after the phase
+before.  Each phase prints its wall time.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -201,6 +221,16 @@ TRAIN_GRAD_TOL = 1e-3
 FLOOR_CAP = 0.1
 # phase 18: demo-100m, cut and resumed
 DEMO_STEPS, DEMO_CUT = 100, 50
+
+
+# phase 19: rwkv6-7b at full width across two pods, both ranks on the one
+# card over gloo: 2 layers (with 1 the stacking of the scan region would be
+# invisible), global batch 2 x 4096 (1 x 4096 a pod), the reference's
+# geococo defaults with the relay ring (1, 0)
+POD_LAYERS, POD_BATCH, POD_SEQ = 2, 2, 4096
+POD_GEO_STEPS, POD_FLAT_STEPS = 4, 2
+POD_SYNC = dict(density=0.10, chunk=2048, min_leaf_size=4096, ring_order=(1, 0))
+POD_TIMEOUT = 600
 
 
 def fail(msg: str) -> None:
@@ -378,8 +408,8 @@ def kernel_entry(name: str, source: str, replaces: str, errs: list, main: dict,
 
 
 def phase_wkv6(ops, wkv6_ref) -> dict:
-    """WKV6 vs plain at the rwkv6 path's shapes (library_ms: no single
-    PyTorch call computes WKV6)."""
+    """WKV6 vs plain at the rwkv6 path's shapes and phase 19's share of a
+    pod (library_ms: no single PyTorch call computes WKV6)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -390,6 +420,7 @@ def phase_wkv6(ops, wkv6_ref) -> dict:
         ("w in [0, 1) with zeros", (BATCH, PROMPT_LEN, 64, 64), False, True),
         ("ragged T", (BATCH, PROMPT_LEN + 1, 64, 64), False, False),
         ("smoke head dim 16", (2, 64, 4, 16), False, False),
+        ("pod share", (POD_BATCH // 2, POD_SEQ, 64, 64), True, False),
     ]
     for label, shape, zero, w_zeros in cases:
         args = wkv6_inputs(gen, *shape, zero_state=zero, w_zeros=w_zeros)
@@ -556,7 +587,8 @@ def check_grads(label: str, got, want, names, tol: float) -> list:
 
 def phase_wkv6_backward(ops, wkv6_backward_ref) -> dict:
     """The WKV6 backward kernel vs the plain reverse sweep at the training
-    shape (s0 and ds_fin zero, as training gives them), the serving prefill,
+    shape and phase 19's share of a pod (s0 and ds_fin zero, as training
+    gives them), the serving prefill,
     a ragged T, w holding zeros, and head dim 16, each but the first with
     nonzero s0 and ds_fin; its time at the training and prefill shapes."""
     import torch
@@ -575,7 +607,8 @@ def phase_wkv6_backward(ops, wkv6_backward_ref) -> dict:
              ("prefill", (BATCH, PROMPT_LEN, 64, 64), False, False),
              ("ragged T", (BATCH, PROMPT_LEN + 1, 64, 64), False, False),
              ("w in [0, 1) with zeros", (BATCH, PROMPT_LEN, 64, 64), False, True),
-             ("smoke head dim 16", (3, 37, 5, 16), False, False)]
+             ("smoke head dim 16", (3, 37, 5, 16), False, False),
+             ("pod share", (POD_BATCH // 2, POD_SEQ, 64, 64), True, False)]
     for label, shape, zero, w_zeros in cases:
         args = inputs(*shape, zero=zero, w_zeros=w_zeros)
         got = ops.wkv6_backward(*args)
@@ -1854,6 +1887,214 @@ def run_merge(ops, ref, counters: dict, dev, rows: int = YCSB_ROWS,
     return {"launches": launches, "wall_ms": wall, "main": main}
 
 
+def pod_rank(rank: int) -> dict:
+    """Phase 19, in one of two spawned processes, both on cuda:0: the main
+    path (train() with geococo, then with flat) with the WKV6 counts read
+    around each run, then the step-level checks (residuals after one step;
+    geococo at density 1.0 against flat from the same state).  Returns what
+    the parent gates across the ranks."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, make_batch
+    from repro_torch.dist.collectives import SyncConfig
+    from repro_torch.dist.grouping import zero_residuals
+    from repro_torch.kernels.rwkv6_wkv import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.train_step import TrainConfig, build_train_step
+    from repro_torch.tree import leaves
+
+    dev = torch.device("cuda", 0)
+    mesh, _ = make_mesh((2, 1, 1), device=dev)
+    cfg = dataclasses.replace(get_config(RWKV), n_layers=POD_LAYERS)
+    geo = TrainConfig(sync=SyncConfig("geococo", **POD_SYNC))
+    flat = TrainConfig(sync=SyncConfig("flat"))
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=POD_SEQ, global_batch=POD_BATCH, seed=0)
+    counters = {"wkv6": ops.wkv6, "wkv6_backward": ops.wkv6_backward}
+    out = {}
+    for name, tcfg, steps in (("geococo", geo, POD_GEO_STEPS), ("flat", flat, POD_FLAT_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        hist, counts = counted(counters, lambda: train(cfg, tcfg, data, steps, seed=0, device=dev,
+                                                       mesh=mesh))
+        out[name] = {"history": hist, "launches": counts,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.cuda.empty_cache()
+
+    def fresh(tcfg):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        return params, adamw_init(params, tcfg.optim), build_train_step(cfg, tcfg, dev, mesh)
+
+    batch = make_batch(data, 0)
+    # one geococo step from the start: the residuals each pod keeps
+    params, opt, step = fresh(geo)
+    res = zero_residuals(cfg, dev)
+    step(params, opt, batch, res)
+    out["residuals"] = {k: (int(r.view(torch.int32).sum(dtype=torch.int64)), float(r.abs().max()),
+                            r.numel()) for k, r in res.items()}
+    del params, opt, step, res
+    torch.cuda.empty_cache()
+    # geococo at density 1.0 and flat, each one step from the same state
+    dense = TrainConfig(sync=SyncConfig("geococo", **dict(POD_SYNC, density=1.0)))
+    params, opt, step = fresh(dense)
+    step(params, opt, batch, zero_residuals(cfg, dev))
+    after_dense = [p.detach().cpu() for p in leaves(params)]
+    del params, opt, step
+    torch.cuda.empty_cache()
+    params, opt, step = fresh(flat)
+    step(params, opt, batch)
+    out["dense_vs_flat"] = max(float((p.detach().cpu() - q).abs().max())
+                               for p, q in zip(leaves(params), after_dense))
+    return out
+
+
+def run_pods() -> None:
+    """Phase 19: rwkv6-7b across two pods on the card (two ranks of one gloo
+    group, spawned by ``launch.mesh.run_local_ranks``), gated here across
+    the ranks."""
+    import os
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.collectives import SyncConfig, estimate_sync_bytes
+    from repro_torch.dist.grouping import group_like_reference
+    from repro_torch.dist.sharding import param_specs
+    from repro_torch.launch.mesh import run_local_ranks
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(RWKV), n_layers=POD_LAYERS)
+    grouped = group_like_reference(cfg, leaves(init_params(cfg, None, "meta")))
+    specs = param_specs(grouped, {"pod": 2, "data": 1, "model": 1}, "geococo")
+    if any(axis is not None for spec in specs.values() for axis in spec):
+        fail(f"[19] a leaf is split on the (2, 1, 1) mesh: {specs}")
+    n = param_count(cfg)
+    print(f"[19] {cfg.name} across 2 pods on one card (2 ranks over gloo, each a CUDA context on "
+          f"cuda:0): full width, {POD_LAYERS} of 32 layers, {n:,} parameters a pod, global batch "
+          f"{POD_BATCH} x {POD_SEQ} ({POD_BATCH // 2} x {POD_SEQ} a pod), bf16 compute, remat; "
+          f"{len(grouped)} leaves in the reference's layout; geococo {POD_SYNC}")
+    before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"   # two processes share 80 GB
+    try:
+        ranks = run_local_ranks(pod_rank, 2, timeout=POD_TIMEOUT)
+    except (RuntimeError, TimeoutError) as err:
+        fail(f"[19] {err}")
+    finally:
+        if before is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+    for name, strategy in (("geococo", SyncConfig("geococo", **POD_SYNC)),
+                           ("flat", SyncConfig("flat"))):
+        estimate = estimate_sync_bytes(grouped, strategy, 2)
+        steps = len(ranks[0][name]["history"])
+        want_launches = {"wkv6": 2 * POD_LAYERS * steps, "wkv6_backward": POD_LAYERS * steps}
+        for rank, got in enumerate(ranks):
+            hist = got[name]["history"]
+            if got[name]["launches"] != want_launches:
+                fail(f"[19] {name}, rank {rank}: launches {got[name]['launches']}, "
+                     f"expected {want_launches}")
+            for rec in hist:
+                if not math.isfinite(rec["loss"]):
+                    fail(f"[19] {name}, rank {rank}, step {rec['step']}: loss {rec['loss']}")
+                if rec["pods_agree"] != 1.0:
+                    fail(f"[19] {name}, step {rec['step']}: the pods' parameters differ")
+                counted_bytes = 2.0 * (2 - 1) / 2 * (4 * rec["dense_values"]
+                                                      + 8 * rec["sparse_values"])
+                if counted_bytes != estimate:
+                    fail(f"[19] {name}, rank {rank}, step {rec['step']}: the wire values counted "
+                         f"({rec['dense_values']:.0f} dense, {rec['sparse_values']:.0f} top-k) "
+                         f"give {counted_bytes:.0f} B, estimate_sync_bytes {estimate:.0f} B")
+        if [r["loss"] for r in ranks[0][name]["history"]] != [r["loss"] for r in
+                                                               ranks[1][name]["history"]]:
+            fail(f"[19] {name}: the ranks report different pod-mean losses")
+        losses = ", ".join(f"{r['loss']:.4f}" for r in ranks[0][name]["history"])
+        print(f"[19] {name}: {steps} steps of train(), pod-mean losses {losses}; "
+              f"parameters bit-identical across the pods after every step; launches a rank "
+              f"{counts_text(ranks[0][name]['launches'])} ({2 * POD_LAYERS} forward, "
+              f"{POD_LAYERS} backward a step); wire values counted = the wire model "
+              f"(estimate_sync_bytes, a (value, index) pair a selection) {estimate / 1e9:.4f} GB "
+              f"a rank a step, handed to gloo {ranks[0][name]['history'][-1]['bytes_sent'] / 1e9:.4f}"
+              f" GB (dense, masked); peak device memory "
+              f"{ranks[0][name]['peak_gb']:.2f} / {ranks[1][name]['peak_gb']:.2f} GB")
+        for rank, got in enumerate(ranks):
+            for rec in got[name]["history"]:
+                device_s = rec["exchange_s"] - rec["exchange_host_s"]
+                print(f"  rank {rank} step {rec['step']}: {rec['dt'] * 1e3:.1f} ms = forward + "
+                      f"backward {rec['compute_s'] * 1e3:.1f}, exchange {rec['exchange_s'] * 1e3:.1f} "
+                      f"(device {device_s * 1e3:.1f}, host staging + gloo "
+                      f"{rec['exchange_host_s'] * 1e3:.1f}), AdamW {rec['adamw_s'] * 1e3:.1f}; "
+                      f"{rec['bytes_sent'] / 1e9:.3f} GB to gloo; top-k selections "
+                      f"{rec['sparse_values']:.0f}, nonzero {rec['nonzero_sent']:.0f}")
+    res = [got["residuals"] for got in ranks]
+    for key, (sum0, max0, size) in res[0].items():
+        sum1, max1, _ = res[1][key]
+        filtered = size >= POD_SYNC["min_leaf_size"]
+        if filtered and not (max0 > 0 and max1 > 0 and sum0 != sum1):
+            fail(f"[19] residual {key} after one step: max |r| {max0:g} / {max1:g}, "
+                 f"checksums {sum0} / {sum1}: expected nonzero and different per pod")
+        if not filtered and (max0 or max1):
+            fail(f"[19] residual {key} of a densely exchanged leaf is nonzero")
+    diff = max(got["dense_vs_flat"] for got in ranks)
+    print(f"[19] after one geococo step: every filtered leaf's residual nonzero and different "
+          f"between the pods ({sum(v[2] >= POD_SYNC['min_leaf_size'] for v in res[0].values())} "
+          f"leaves), the dense ones 0; geococo at density 1.0 vs flat from the same state: "
+          f"max |difference| of the parameters {diff:g} (two pods: each sum adds the same two "
+          f"operands, so the gate is 0)")
+    if diff != 0.0:
+        fail(f"[19] geococo at density 1.0 differs from flat by {diff:g}")
+
+
+def run_topk(shapes, dev, filter_ms: float) -> dict:
+    """Phase 20: geococo's chunked top-k (``topk_select``: f32 g + r, per
+    chunk of 2048 the top 10% by magnitude, the sent values and the new
+    residual) over phase 9's gradient share, one process, no exchange: its
+    device time by CUDA events around the leaves' launches, against its
+    bound (g and r read, sent and new residual written: 16 B an element)."""
+    import torch
+
+    from repro_torch.dist.collectives import topk_select
+
+    memory_line("[20]", "start")
+    leaves = _tensors(shapes)
+    n = sum(x.numel() for x in leaves)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = [torch.randn(x.shape, generator=gen, device=dev) for x in leaves]
+    r = [torch.randn(x.shape, generator=gen, device=dev) * 0.5 for x in leaves]
+    density, chunk = POD_SYNC["density"], POD_SYNC["chunk"]
+
+    def run():
+        for gl, rl in zip(g, r):
+            topk_select(gl, rl, density=density, chunk=chunk)
+
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = statistics.median(times)
+    bound, by = _bound(16 * n, 0)
+    dev_ms, by_name = profile_step(run)
+    print(f"[20] chunked top-k over {len(leaves)} leaves, {n:,} elements (phase 9's share), f32 g "
+          f"and r, chunk {chunk}, density {density}: {ms:.4f} ms on the device (CUDA events, "
+          f"median of {len(times)}), bound {bound:.4f} ms ({by}, 16 B an element): "
+          f"{bound / ms:.1%}; the white-data filter over the same share {filter_ms:.4f} ms")
+    if dev_ms is not None:
+        print(f"  kernels' device time in one pass {dev_ms:.2f} ms (torch.profiler), the largest:")
+        for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"    {kms:9.3f} ms  {name[:100]}")
+    del g, r
+    torch.cuda.empty_cache()
+    memory_line("[20]", "end")
+    return {"ms": ms, "bound_ms": bound, "device_ms": dev_ms}
+
+
 def build_all(_build) -> None:
     """Phase 2: one nvcc per source, all started together."""
     def timed(name):
@@ -1903,6 +2144,7 @@ def main() -> None:
     build_all(_build)
 
     # ---- 3. kernels vs plain
+    t_phase = time.perf_counter()
     print("[3] kernels vs plain PyTorch on the card")
     entries = {"wkv6": phase_wkv6(wkv6_ops, wkv6_ref),
                "wkv6_backward": phase_wkv6_backward(wkv6_ops, wkv6_backward_ref),
@@ -1917,15 +2159,19 @@ def main() -> None:
                 "whitedata_filter": filter_ops.whitedata_filter,
                 "crdt_merge": merge_ops.crdt_merge}
 
+    print(f"  [3] took {time.perf_counter() - t_phase:.1f} s")
+
     tcfg = TrainConfig()
+    t_phase = time.perf_counter()
     entries["wkv6"]["launches"] = run_rwkv6(dev, tcfg, counters)["wkv6"]
     torch.cuda.empty_cache()
     print(f"  released the {RWKV} weights: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-          "still allocated")
+          f"still allocated; [4-5] took {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
     entries["rglru_scan"]["launches"] = run_recurrentgemma(dev, tcfg, counters)["rglru_scan"]
     torch.cuda.empty_cache()
     print(f"  released the {RG} weights: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
-          "still allocated")
+          f"still allocated; [6-8] took {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 9. the white-data filter over a gradient tree
     t_phase = time.perf_counter()
@@ -1975,6 +2221,17 @@ def main() -> None:
     t_phase = time.perf_counter()
     run_demo(dev, counters)
     print(f"  [18] took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 19. rwkv6-7b across two pods on the emptied card
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    run_pods()
+    print(f"  [19] took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 20. geococo's chunked top-k over phase 9's gradient share
+    t_phase = time.perf_counter()
+    run_topk(gradient_shapes(), dev, filt["timings"]["f32"]["ms"])
+    print(f"  [20] took {time.perf_counter() - t_phase:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

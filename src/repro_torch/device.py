@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "synchronize"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -17,3 +17,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "plain PyTorch path"
         )
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op off the card)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

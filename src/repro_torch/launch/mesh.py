@@ -1,0 +1,148 @@
+"""The device mesh for training across pods (counterpart of
+``repro.launch.mesh``), and a launcher of local ranks.
+
+The port runs one process per pod.  Under ``torchrun`` the process group
+comes from the environment; :func:`run_local_ranks` starts the ranks of
+one host itself, over a ``FileStore``, for the tests and ``chip_smoke.py``.
+The group is gloo: its messages are host tensors, which every rank stages
+to and from its device (``dist.collectives.PodGroup``), so several ranks
+can share one card.
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import multiprocessing as mp
+import os
+import pickle
+import queue
+import tempfile
+import time
+import traceback
+from typing import Any, Callable
+
+import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from ..device import resolve_device
+
+__all__ = ["AXES", "check_mesh_shape", "make_mesh", "run_local_ranks"]
+
+AXES = ("pod", "data", "model")
+
+
+def check_mesh_shape(shape: tuple[int, ...], world_size: int,
+                     axes: tuple[str, ...] = AXES) -> None:
+    """Raise ``ValueError`` on a shape this slice cannot run: a mesh that
+    splits a pod (``data`` or ``model`` above 1), or one whose size is not
+    the world size."""
+    if len(shape) != len(axes) or any(s < 1 for s in shape):
+        raise ValueError(f"mesh {tuple(shape)} does not give the axes {axes} a size each")
+    sizes = dict(zip(axes, shape))
+    inner = {a: s for a, s in sizes.items() if a != "pod" and s > 1}
+    if inner:
+        raise ValueError(
+            f"mesh {tuple(shape)} shards within a pod ({inner}): in-pod sharding is not "
+            "ported yet; it arrives with 6b-ii: in-pod sharding (FSDP2/DTensor, TP, EP)")
+    if math.prod(shape) != world_size:
+        raise ValueError(f"mesh {tuple(shape)} holds {math.prod(shape)} ranks, "
+                         f"the world has {world_size}")
+
+
+def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...] = AXES,
+              device: str | torch.device | None = None) -> tuple[DeviceMesh, dist.ProcessGroup]:
+    """A ``DeviceMesh`` of ``shape`` over the gloo process group, and its
+    ``pod`` group.  Initialises the group from the environment (``torchrun``)
+    when none is; selects ``device`` (default ``cuda``; without an index,
+    card ``LOCAL_RANK`` modulo the cards there are, so that the ranks of one
+    host share a single card) as this rank's compute device.  The mesh's
+    device type is the CPU: the wire is gloo over host buffers.  Raises on a
+    shape :func:`check_mesh_shape` refuses."""
+    device = resolve_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("gloo")
+    if dist.get_backend() != "gloo":
+        raise ValueError(f"the pod exchange runs over gloo, the process group is "
+                         f"{dist.get_backend()}")
+    check_mesh_shape(tuple(shape), dist.get_world_size(), tuple(axes))
+    if device.type == "cuda":       # without an index: the launcher's local rank, over the cards
+        torch.cuda.set_device(device.index if device.index is not None else
+                              int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
+    mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+    return mesh, mesh.get_group("pod")
+
+
+def _rank_main(fn: Callable, rank: int, world_size: int, store: str, timeout: float,
+               args: tuple, results: mp.Queue) -> None:
+    if "OMP_NUM_THREADS" not in os.environ:     # share the host's cores, as torchrun does
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                                world_size=world_size,
+                                timeout=datetime.timedelta(seconds=timeout))
+        try:
+            out = fn(rank, *args)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    # plain pickle: tensors are copied, not shared through file descriptors
+    # that die with this process
+    results.put((rank, True, pickle.dumps(out)))
+
+
+def run_local_ranks(fn: Callable[..., Any], world_size: int, args: tuple = (), *,
+                    timeout: float = 120.0) -> list[Any]:
+    """Run ``fn(rank, *args)`` in ``world_size`` spawned processes joined in
+    one gloo process group, and return their results by rank.  ``fn`` and
+    ``args`` must pickle; so must the results.  A rank that raises fails the
+    call with its traceback; ranks still running ``timeout`` seconds after
+    the start are killed and the call raises ``TimeoutError``."""
+    ctx = mp.get_context("spawn")
+    results: mp.Queue = ctx.Queue()
+    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
+        procs = [ctx.Process(target=_rank_main, daemon=True,
+                             args=(fn, r, world_size, os.path.join(tmp, "store"), timeout,
+                                   args, results))
+                 for r in range(world_size)]
+        for p in procs:
+            p.start()
+        done: dict[int, Any] = {}
+        failed: dict[int, str] = {}
+        deadline = time.monotonic() + timeout  # lint: allow[wallclock] the ranks' timeout
+        try:
+            while len(done) + len(failed) < world_size:
+                left = deadline - time.monotonic()  # lint: allow[wallclock] the ranks' timeout
+                if left <= 0:
+                    break
+                try:
+                    rank, ok, payload = results.get(timeout=min(left, 1.0))
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(procs) if p.exitcode not in (None, 0)
+                            and r not in done and r not in failed]
+                    if not dead:
+                        continue
+                    try:            # a failed rank's traceback may still be in the pipe
+                        rank, ok, payload = results.get(timeout=5)
+                    except queue.Empty:
+                        failed.update({r: f"exited with code {procs[r].exitcode}" for r in dead})
+                        continue
+                (done if ok else failed)[rank] = payload
+                if failed:          # the others' reports of the broken group follow soon
+                    deadline = min(deadline, time.monotonic() + 5)  # lint: allow[wallclock] the ranks' timeout
+        finally:
+            for p in procs:
+                p.join(timeout=0 if failed else 30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    if failed:
+        raise RuntimeError("\n".join(f"rank {r} of {world_size} failed:\n{failed[r]}"
+                                     for r in sorted(failed)))
+    if len(done) < world_size:
+        missing = sorted(set(range(world_size)) - set(done))
+        raise TimeoutError(f"ranks {missing} of {world_size} did not finish in {timeout:.0f} s")
+    return [pickle.loads(done[r]) for r in range(world_size)]

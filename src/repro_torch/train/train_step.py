@@ -1,20 +1,28 @@
 """Train and serve step builders (counterpart of ``repro.train.train_step``).
 
-This slice runs on one card with the whole model on it: there is no mesh,
-no sharding and, with one pod, no gradient sync (the reference's
-``build_train_step`` skips its pod sync when ``n_pods == 1`` too).
-``TrainConfig.sync`` arrives with the gradient-sync slice.
+The whole model sits on each rank's card.  With a mesh of more than one pod
+(``launch.mesh.make_mesh``, shape ``(P, 1, 1)``: one process per pod), each
+pod computes the loss on its rows of the global batch, and the gradients are
+exchanged once a step by ``dist.collectives.sync_gradients`` under
+``TrainConfig.sync``, in the reference's leaf layout
+(``dist.grouping``), before AdamW.  With no mesh or one pod there is no
+exchange (the reference's ``build_train_step`` skips its pod sync when
+``n_pods == 1`` too).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig
-from ..device import resolve_device
+from ..device import resolve_device, synchronize
+from ..dist.collectives import PodGroup, SyncConfig, WireStats, sync_gradients
+from ..dist.grouping import group_like_reference, ungroup
 from ..models.layers import Params
 from ..models.model import forward
 from ..optim.adamw import AdamWConfig, adamw_update
@@ -25,6 +33,7 @@ __all__ = ["TrainConfig", "loss_fn", "grads_and_loss", "build_train_step", "buil
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+    sync: SyncConfig = SyncConfig()
     optim: AdamWConfig = AdamWConfig()
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -70,22 +79,101 @@ def grads_and_loss(cfg: ModelConfig, tcfg: TrainConfig, params: Params,
     return [(acc / n_micro).to(p.dtype) for acc, p in zip(gsum, ps)], lsum / n_micro
 
 
+_INTS = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}
+
+
+def _checksums(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """Per tensor, the int64 sum of its elements' bits read as integers: two
+    pods' parameters agree bit for bit where these do."""
+    return torch.stack([t.detach().view(_INTS[t.element_size()]).sum(dtype=torch.int64)
+                        for t in tensors]).cpu()
+
+
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
-                     device: str | torch.device | None = None) -> Callable:
-    """``step(params, opt_state, batch) -> metrics``: one forward and
-    backward (per microbatch), then AdamW, which updates ``params`` and
-    ``opt_state`` in place.  The batch is moved to ``device``; params and
-    state must already be there.  ``metrics`` holds 0-d f32 tensors
-    ``loss``, ``grad_norm`` and ``lr`` (no host sync)."""
+                     device: str | torch.device | None = None, mesh=None) -> Callable:
+    """``step(params, opt_state, batch, residuals=None) -> metrics``: one
+    forward and backward (per microbatch), then AdamW, which updates
+    ``params`` and ``opt_state`` in place.  The batch is moved to ``device``;
+    params and state must already be there.  ``metrics`` holds 0-d f32
+    tensors ``loss``, ``grad_norm`` and ``lr`` (no host sync).
+
+    With a ``mesh`` (a ``DeviceMesh`` with a ``pod`` axis) of P > 1 pods,
+    ``batch`` is the global batch: this pod takes its rows
+    ``[p B / P, (p + 1) B / P)``, and after the backward the gradients,
+    grouped as the reference stacks them, go through ``sync_gradients``
+    with ``residuals`` (f32, grouped; required when ``tcfg.sync`` carries
+    them), which the step replaces in place by the new ones.  ``loss`` is
+    then the mean over the pods, ``pods_agree`` 1.0: every pod ends the
+    step with the same parameters, bit for bit, and the step raises
+    ``RuntimeError`` on every pod where they differ.  ``metrics`` also
+    holds the host
+    seconds of the step's parts (``compute_s``: forward and backward;
+    ``exchange_s``: grouping, exchange and ungrouping, of which
+    ``exchange_host_s`` staging and gloo; ``adamw_s``) and the wire's counts
+    (``dense_values``, ``sparse_values``, ``nonzero_sent``, ``bytes_sent``:
+    ``dist.collectives.WireStats``), each a float."""
     device = resolve_device(device)
+    pods = PodGroup(mesh.get_group("pod")) if mesh is not None else None
 
-    def step(params: Params, opt_state: dict, batch: dict[str, torch.Tensor]) -> dict:
-        batch = {k: v.to(device) for k, v in batch.items()}
+    if pods is None or pods.size <= 1:
+        def step(params: Params, opt_state: dict, batch: dict[str, torch.Tensor],
+                 residuals: dict | None = None) -> dict:
+            batch = {k: v.to(device) for k, v in batch.items()}
+            grads, loss = grads_and_loss(cfg, tcfg, params, batch)
+            _, _, metrics = adamw_update(params, grads, opt_state, tcfg.optim)
+            return dict(metrics, loss=loss)
+
+        return step
+
+    n = pods.size
+
+    def pod_step(params: Params, opt_state: dict, batch: dict[str, torch.Tensor],
+                 residuals: dict | None = None) -> dict:
+        if tcfg.sync.needs_residuals and residuals is None:
+            raise ValueError(f"{tcfg.sync.strategy} carries residuals: pass them to the step")
+        rows = next(iter(batch.values())).shape[0]
+        if rows % n:
+            raise ValueError(f"a global batch of {rows} does not split over {n} pods")
+        own = slice(pods.rank * rows // n, (pods.rank + 1) * rows // n)
+        batch = {k: v[own].to(device) for k, v in batch.items()}
+        clock = time.perf_counter  # lint: allow[wallclock] the step's parts
+        synchronize(device)
+        t0 = clock()
         grads, loss = grads_and_loss(cfg, tcfg, params, batch)
+        synchronize(device)
+        t1 = clock()
+        pods.stats = WireStats()
+        grouped = group_like_reference(cfg, grads)
+        del grads
+        synced, new_res = sync_gradients(grouped, residuals, tcfg.sync, group=pods)
+        del grouped
+        if residuals is not None and new_res is not residuals:
+            residuals.update(new_res)
+        grads = ungroup(cfg, synced)
+        del synced
+        synchronize(device)
+        t2 = clock()
         _, _, metrics = adamw_update(params, grads, opt_state, tcfg.optim)
-        return dict(metrics, loss=loss)
+        synchronize(device)
+        t3 = clock()
+        total = loss.detach().float().reshape(1).cpu()
+        dist.all_reduce(total, group=pods.group)
+        sums = _checksums(leaves(params))
+        every = [torch.empty_like(sums) for _ in range(n)]
+        dist.all_gather(every, sums, group=pods.group)
+        differ = [p for p, s in enumerate(every) if not torch.equal(s, sums)]
+        if differ:
+            raise RuntimeError(f"pod {pods.rank}: the parameters of pods {differ} differ "
+                               f"from this pod's after the exchange")
+        stats = pods.stats
+        return dict(metrics, loss=total[0] / n, pods_agree=1.0,
+                    compute_s=t1 - t0, exchange_s=t2 - t1,
+                    exchange_host_s=stats.host_s, adamw_s=t3 - t2,
+                    dense_values=float(stats.dense_values),
+                    sparse_values=float(stats.sparse_values),
+                    nonzero_sent=float(stats.nonzero_sent), bytes_sent=stats.bytes_sent)
 
-    return step
+    return pod_step
 
 
 def build_serve_step(cfg: ModelConfig, tcfg: TrainConfig, *, kind: str = "decode",
