@@ -100,12 +100,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    all-reduce sums dense values on the host);
 20. geococo's chunked top-k (``topk_select``) over phase 9's gradient share,
    one process, no exchange: its device time by CUDA events against its
-   bound (16 B an element), beside the white-data filter's.
+   bound (16 B an element), beside the white-data filter's;
+21. rwkv6-7b on a (2, 2, 1) mesh: four ranks spawned on the card, joined
+   over gloo, each holding its blocks of the parameters, of AdamW's m and v
+   and of the residuals (``data`` splits dim 0 of every 2-d leaf), at full
+   width and 2 layers on its 1 x 4096 rows of a 4 x 4096 global batch,
+   bf16 compute, remat: 3 steps of ``train()`` with hier (relay ring
+   (1, 0)), then 3 with geococo at phase 19's settings, the WKV6 counts
+   read around each run in each rank.  Gated: finite losses, the same on
+   every rank; the blocks of every pod group bit-identical after every
+   step, and the whole leaves of every pod (the step raises otherwise);
+   the wire values counted equal to the per-rank wire model
+   (``estimate_sync_bytes`` over the rank's blocks; printed beside the
+   reference's ``shard_factor`` form); after one geococo step every
+   filtered residual block nonzero and different between the pods;
+   geococo at density 1.0 equal to hier from the same state, bit for bit;
+   one hier step against one on (2, 1, 1) with 2 microbatches (two ranks,
+   run first) from the same state and batch, each gradient leaf within 4 x
+   its noise floor (the batch's rows reversed) or 1e-3 of its norm.
+   Printed per step and rank: compute, the in-pod gathers and
+   reduce-scatters and the pod exchange (device and host parts), AdamW,
+   the bytes to gloo in-pod and across the pods; peak memory a rank; hier's
+   bytes across the pod against phase 19's flat on (2, 1, 1).
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13 and 15-20 each on an empty card after the phase
+released, and phases 11, 13 and 15-21 each on an empty card after the phase
 before.  Each phase prints its wall time.
 
 The line before the last lists the kernels as JSON; the last line is
@@ -231,6 +252,14 @@ POD_LAYERS, POD_BATCH, POD_SEQ = 2, 2, 4096
 POD_GEO_STEPS, POD_FLAT_STEPS = 4, 2
 POD_SYNC = dict(density=0.10, chunk=2048, min_leaf_size=4096, ring_order=(1, 0))
 POD_TIMEOUT = 600
+# phase 21: rwkv6-7b at full width and 2 layers on a (2, 2, 1) mesh, four
+# ranks on the one card, each holding its blocks of the parameters, of m, v
+# and of the residuals (data splits dim 0 of every 2-d leaf); global batch
+# 4 x 4096 (1 x 4096 a rank): hier on the relay ring (1, 0), then geococo at
+# POD_SYNC; one hier step held against one on (2, 1, 1) with 2 microbatches
+INPOD_MESH, INPOD_BATCH = (2, 2, 1), 4
+INPOD_HIER_STEPS, INPOD_GEO_STEPS = 3, 3
+INPOD_TIMEOUT = 900
 
 
 def fail(msg: str) -> None:
@@ -1950,12 +1979,28 @@ def pod_rank(rank: int) -> dict:
     return out
 
 
-def run_pods() -> None:
-    """Phase 19: rwkv6-7b across two pods on the card (two ranks of one gloo
-    group, spawned by ``launch.mesh.run_local_ranks``), gated here across
-    the ranks."""
+@contextlib.contextmanager
+def shared_card():
+    """The ranks spawned inside share the card's 80 GB: their allocators
+    grow segments rather than reserve fixed blocks."""
     import os
 
+    before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
+
+
+def run_pods() -> float:
+    """Phase 19: rwkv6-7b across two pods on the card (two ranks of one gloo
+    group, spawned by ``launch.mesh.run_local_ranks``), gated here across
+    the ranks.  Returns the bytes flat handed to gloo a rank in its last
+    step."""
     from repro_torch.configs.registry import get_config
     from repro_torch.dist.collectives import SyncConfig, estimate_sync_bytes
     from repro_torch.dist.grouping import group_like_reference
@@ -1974,17 +2019,11 @@ def run_pods() -> None:
           f"cuda:0): full width, {POD_LAYERS} of 32 layers, {n:,} parameters a pod, global batch "
           f"{POD_BATCH} x {POD_SEQ} ({POD_BATCH // 2} x {POD_SEQ} a pod), bf16 compute, remat; "
           f"{len(grouped)} leaves in the reference's layout; geococo {POD_SYNC}")
-    before = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"   # two processes share 80 GB
     try:
-        ranks = run_local_ranks(pod_rank, 2, timeout=POD_TIMEOUT)
+        with shared_card():
+            ranks = run_local_ranks(pod_rank, 2, timeout=POD_TIMEOUT)
     except (RuntimeError, TimeoutError) as err:
         fail(f"[19] {err}")
-    finally:
-        if before is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
     for name, strategy in (("geococo", SyncConfig("geococo", **POD_SYNC)),
                            ("flat", SyncConfig("flat"))):
         estimate = estimate_sync_bytes(grouped, strategy, 2)
@@ -2044,6 +2083,268 @@ def run_pods() -> None:
           f"operands, so the gate is 0)")
     if diff != 0.0:
         fail(f"[19] geococo at density 1.0 differs from flat by {diff:g}")
+    return ranks[0]["flat"]["history"][-1]["bytes_sent"]
+
+
+def inpod_config():
+    from repro_torch.configs.registry import get_config
+
+    return dataclasses.replace(get_config(RWKV), n_layers=POD_LAYERS)
+
+
+def inpod_data(cfg):
+    from repro_torch.data.pipeline import DataConfig
+
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=POD_SEQ, global_batch=INPOD_BATCH, seed=0)
+
+
+def inpod_reference_rank(rank: int, out_dir: str) -> dict:
+    """Phase 21's yardstick, in one of two spawned processes on cuda:0: the
+    synced gradient of one hier step on (2, 1, 1) with 2 microbatches (the
+    rows each (2, 2, 1) rank computes on, one microbatch each), from the
+    seed-0 parameters and the first global batch, and the same with the
+    batch's rows reversed, its noise floor.  Pod 0 writes the gradient to
+    ``out_dir``."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.dist.collectives import SyncConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import init_params
+    from repro_torch.train.train_step import SyncGrads, TrainConfig
+    from repro_torch.tree import leaf_paths
+
+    dev = torch.device("cuda", 0)
+    mesh, _ = make_mesh((2, 1, 1), device=dev)
+    cfg = inpod_config()
+    tcfg = TrainConfig(sync=SyncConfig("hier", ring_order=(1, 0)), microbatches=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    sync = SyncGrads(cfg, tcfg, dev, mesh)
+    batch = make_batch(inpod_data(cfg), 0)
+    grads, loss, _ = sync(params, batch)
+    flipped, loss_flipped, _ = sync(params, {k: v.flip(0) for k, v in batch.items()})
+    keys = [key for key, _ in leaf_paths(params)]
+    floors = {key: float((a - b).norm() / b.norm().clamp_min(1e-30))
+              for key, a, b in zip(keys, flipped, grads)}
+    del flipped
+    losses = torch.stack([loss, loss_flipped]).float().cpu()
+    dist.all_reduce(losses)
+    if mesh.coords["pod"] == 0:
+        torch.save({key: g.detach().cpu() for key, g in zip(keys, grads)},
+                   os.path.join(out_dir, "grads.pt"))
+    dist.barrier()
+    return {"floors": floors, "loss": float(losses[0] / 2), "loss_flipped": float(losses[1] / 2)}
+
+
+def inpod_rank(rank: int, ref_dir: str) -> dict:
+    """Phase 21, in one of four spawned processes, all on cuda:0, on the
+    (2, 2, 1) mesh: the main path (train() with hier, then geococo) with the
+    WKV6 counts read around each run, then the step-level checks from the
+    seed-0 state (the residual blocks after one geococo step; hier against
+    geococo at density 1.0; hier against the (2, 1, 1) gradient in
+    ``ref_dir``)."""
+    import math
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.dist.collectives import SyncConfig
+    from repro_torch.dist.grouping import leaf_specs, zero_residuals
+    from repro_torch.dist.inpod import InPodGroup
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.kernels.rwkv6_wkv import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import StatePlacement, train
+    from repro_torch.models.model import init_params
+    from repro_torch.train.train_step import SyncGrads, TrainConfig
+
+    dev = torch.device("cuda", 0)
+    mesh, _ = make_mesh(INPOD_MESH, device=dev)
+    cfg = inpod_config()
+    hier = TrainConfig(sync=SyncConfig("hier", ring_order=POD_SYNC["ring_order"]))
+    geo = TrainConfig(sync=SyncConfig("geococo", **POD_SYNC))
+    data = inpod_data(cfg)
+    counters = {"wkv6": ops.wkv6, "wkv6_backward": ops.wkv6_backward}
+    out = {"coords": dict(mesh.coords)}
+    for name, tcfg, steps in (("hier", hier, INPOD_HIER_STEPS), ("geococo", geo, INPOD_GEO_STEPS)):
+        torch.cuda.reset_peak_memory_stats()
+        hist, counts = counted(counters, lambda: train(cfg, tcfg, data, steps, seed=0, device=dev,
+                                                       mesh=mesh))
+        out[name] = {"history": hist, "launches": counts,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        torch.cuda.empty_cache()
+
+    def blocks(tcfg):
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        return StatePlacement(cfg, tcfg, dev, mesh).place(full, "params")
+
+    batch = make_batch(data, 0)
+    # one geococo step from the start: the residual blocks each pod keeps
+    params, res = blocks(geo), zero_residuals(cfg, dev, mesh.shape, "geococo")
+    SyncGrads(cfg, geo, dev, mesh)(params, batch, res)
+    out["residuals"] = {k: (int(r.view(torch.int32).sum(dtype=torch.int64)), float(r.abs().max()),
+                            r.numel()) for k, r in res.items()}
+    del params, res
+    torch.cuda.empty_cache()
+    # hier and geococo at density 1.0 from the same state: the synced blocks
+    params = blocks(hier)
+    g_hier, loss, _ = SyncGrads(cfg, hier, dev, mesh)(params, batch)
+    dense = TrainConfig(sync=SyncConfig("geococo", **dict(POD_SYNC, density=1.0)))
+    g_dense, _, _ = SyncGrads(cfg, dense, dev, mesh)(
+        params, batch, zero_residuals(cfg, dev, mesh.shape, "geococo"))
+    out["dense_vs_hier"] = max(float((a - b).abs().max()) for a, b in zip(g_dense, g_hier))
+    del g_dense
+    # hier against (2, 1, 1) with 2 microbatches: per leaf the norm of the
+    # difference over the norm of the (2, 1, 1) gradient, each block counted once
+    want = torch.load(os.path.join(ref_dir, "grads.pt"), mmap=True)
+    inpod = InPodGroup(mesh)
+    specs = leaf_specs(cfg, mesh.shape, "hier")
+    sums = []
+    for (key, spec), got in zip(specs.items(), g_hier):
+        w = local_shard(want[key], spec, mesh.coords, mesh.shape).to(dev)
+        part = torch.stack([(got.float() - w.float()).square().sum(), w.float().square().sum()])
+        sums.append(part if inpod.counts_once(spec) else torch.zeros_like(part))
+    total = inpod.all_reduce_sum(torch.stack(sums)).cpu()
+    out["vs_211"] = {key: math.sqrt(d) / max(math.sqrt(n), 1e-30)
+                     for key, (d, n) in zip(specs, total.tolist())}
+    mean = loss.detach().float().reshape(1).cpu()
+    dist.all_reduce(mean)
+    out["loss"] = float(mean[0]) / mesh.size
+    return out
+
+
+def run_inpod(flat_bytes: float) -> None:
+    """Phase 21: rwkv6-7b on a (2, 2, 1) mesh on the card (four ranks of one
+    gloo group), after its yardstick on (2, 1, 1) (two ranks), gated here
+    across the ranks.  ``flat_bytes``: what flat handed to gloo a rank a
+    step in phase 19, on (2, 1, 1)."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.dist.collectives import SyncConfig, estimate_sync_bytes
+    from repro_torch.dist.grouping import group_like_reference, grouped_specs
+    from repro_torch.dist.sharding import local_shape
+    from repro_torch.launch.mesh import run_local_ranks
+    from repro_torch.models.model import init_params
+    from repro_torch.tree import leaves
+
+    cfg = inpod_config()
+    sizes = dict(zip(("pod", "data", "model"), INPOD_MESH))
+    n_ranks = math.prod(INPOD_MESH)
+    grouped = group_like_reference(cfg, leaves(init_params(cfg, None, "meta")))
+    specs = grouped_specs(cfg, sizes, "hier")
+    mine = {k: torch.empty(local_shape(v.shape, specs[k], sizes), device="meta")
+            for k, v in grouped.items()}
+    replicated = {k: v.numel() for k, v in grouped.items() if not any(specs[k])}
+    n_full, n_rank = sum(v.numel() for v in grouped.values()), sum(v.numel() for v in mine.values())
+    print(f"[21] {cfg.name} on a {INPOD_MESH} mesh on one card (4 ranks over gloo, each a CUDA "
+          f"context on cuda:0): full width, {POD_LAYERS} of 32 layers, {n_full:,} parameters, "
+          f"{n_rank:,} a rank ({len(mine) - len(replicated)} leaves split over data, "
+          f"{len(replicated)} whole: {sum(replicated.values()):,} values); global batch "
+          f"{INPOD_BATCH} x {POD_SEQ} (1 x {POD_SEQ} a rank), bf16 compute, remat; hier on the "
+          f"ring {POD_SYNC['ring_order']}, geococo {POD_SYNC}")
+    with shared_card(), tempfile.TemporaryDirectory(prefix="inpod-") as ref_dir:
+        try:
+            t0 = time.perf_counter()
+            ref = run_local_ranks(inpod_reference_rank, 2, (ref_dir,), timeout=POD_TIMEOUT)
+            print(f"[21] the (2, 1, 1) yardstick (2 ranks, hier, 2 microbatches of 1 x {POD_SEQ}) "
+                  f"in {time.perf_counter() - t0:.1f} s")
+            ranks = run_local_ranks(inpod_rank, n_ranks, (ref_dir,), timeout=INPOD_TIMEOUT)
+        except (RuntimeError, TimeoutError) as err:
+            fail(f"[21] {err}")
+    per_pod = n_ranks // INPOD_MESH[0]
+    for name, strategy in (("hier", SyncConfig("hier", ring_order=POD_SYNC["ring_order"])),
+                           ("geococo", SyncConfig("geococo", **POD_SYNC))):
+        model = estimate_sync_bytes(mine, strategy, INPOD_MESH[0])
+        reference = estimate_sync_bytes(grouped, strategy, INPOD_MESH[0],
+                                        shard_factor=per_pod) / per_pod
+        steps = len(ranks[0][name]["history"])
+        want_launches = {"wkv6": 2 * POD_LAYERS * steps, "wkv6_backward": POD_LAYERS * steps}
+        for rank, got in enumerate(ranks):
+            if got[name]["launches"] != want_launches:
+                fail(f"[21] {name}, rank {rank}: launches {got[name]['launches']}, "
+                     f"expected {want_launches}")
+            for rec in got[name]["history"]:
+                if not math.isfinite(rec["loss"]):
+                    fail(f"[21] {name}, rank {rank}, step {rec['step']}: loss {rec['loss']}")
+                if rec["pods_agree"] != 1.0:
+                    fail(f"[21] {name}, step {rec['step']}: the pods' blocks differ")
+                counted_bytes = 2.0 * (2 - 1) / 2 * (4 * rec["dense_values"]
+                                                      + 8 * rec["sparse_values"])
+                if counted_bytes != model:
+                    fail(f"[21] {name}, rank {rank}, step {rec['step']}: the wire values counted "
+                         f"({rec['dense_values']:.0f} dense, {rec['sparse_values']:.0f} top-k) "
+                         f"give {counted_bytes:.0f} B, the per-rank wire model {model:.0f} B")
+        losses = [[r["loss"] for r in got[name]["history"]] for got in ranks]
+        peaks = ", ".join(f"{got[name]['peak_gb']:.2f}" for got in ranks)
+        if any(one != losses[0] for one in losses):
+            fail(f"[21] {name}: the ranks report different mean losses")
+        print(f"[21] {name}: {steps} steps of train(), mean losses "
+              f"{', '.join(f'{v:.4f}' for v in losses[0])}; within every pod group the blocks "
+              f"bit-identical after every step, and within every pod the whole leaves; launches a "
+              f"rank {counts_text(ranks[0][name]['launches'])}; wire values counted = the "
+              f"per-rank wire model {model / 1e9:.4f} GB a rank a step; the reference's "
+              f"estimate_sync_bytes(shard_factor={per_pod}) / {per_pod} = "
+              f"{reference / 1e9:.4f} GB, the difference {model - reference:+.0f} B (it counts "
+              f"a whole leaf once a pod, every in-pod rank sends it); peak device memory a "
+              f"rank {peaks} GB")
+        for rank, got in enumerate(ranks):
+            for rec in got[name]["history"]:
+                compute = rec["compute_s"] - rec["inpod_s"]
+                print(f"  rank {rank} step {rec['step']}: {rec['dt'] * 1e3:.1f} ms = forward + "
+                      f"backward {compute * 1e3:.1f} + in-pod gathers and reduce-scatters "
+                      f"{rec['inpod_s'] * 1e3:.1f} (device {(rec['inpod_s'] - rec['inpod_host_s']) * 1e3:.1f}"
+                      f", host staging + gloo {rec['inpod_host_s'] * 1e3:.1f}), pod exchange "
+                      f"{rec['exchange_s'] * 1e3:.1f} (device "
+                      f"{(rec['exchange_s'] - rec['exchange_host_s']) * 1e3:.1f}, host "
+                      f"{rec['exchange_host_s'] * 1e3:.1f}), AdamW {rec['adamw_s'] * 1e3:.1f}; "
+                      f"to gloo {rec['inpod_bytes'] / 1e9:.3f} GB in-pod, "
+                      f"{rec['bytes_sent'] / 1e9:.3f} GB across pods")
+    hier_bytes = ranks[0]["hier"]["history"][-1]["bytes_sent"]
+    print(f"[21] across the pod a rank a step: hier on (2, 2, 1) {hier_bytes / 1e9:.4f} GB, flat "
+          f"on (2, 1, 1) (phase 19) {flat_bytes / 1e9:.4f} GB: {hier_bytes / flat_bytes:.4f} of it "
+          f"(the wire model: {estimate_sync_bytes(mine, SyncConfig('hier'), 2) / 1e9:.4f} against "
+          f"{estimate_sync_bytes(grouped, SyncConfig('flat'), 2) / 1e9:.4f} GB)")
+    res = [got["residuals"] for got in ranks]
+    for rank in range(n_ranks):
+        other = (rank + per_pod) % n_ranks
+        for key, (sum0, max0, size) in res[rank].items():
+            sum1, max1, _ = res[other][key]
+            if size >= POD_SYNC["min_leaf_size"] and not (max0 > 0 and sum0 != sum1):
+                fail(f"[21] residual block {key} of rank {rank} after one step: max |r| {max0:g}, "
+                     f"checksums {sum0} / {sum1} (rank {other}): expected nonzero and different "
+                     f"per pod")
+            if size < POD_SYNC["min_leaf_size"] and max0:
+                fail(f"[21] residual block {key} of a densely exchanged leaf is nonzero")
+    diff = max(got["dense_vs_hier"] for got in ranks)
+    print(f"[21] after one geococo step every filtered residual block nonzero and different "
+          f"between the pods ({sum(v[2] >= POD_SYNC['min_leaf_size'] for v in res[0].values())} "
+          f"leaves a rank), the dense ones 0; geococo at density 1.0 vs hier from the same state: "
+          f"max |difference| of the synced blocks {diff:g} (gate 0)")
+    if diff != 0.0:
+        fail(f"[21] geococo at density 1.0 differs from hier by {diff:g}")
+    floors = ref[0]["floors"]
+    loss_floor = abs(ref[0]["loss_flipped"] - ref[0]["loss"]) / abs(ref[0]["loss"])
+    limits = {key: max(TRAIN_GRAD_TOL, FLOOR_MULT * f) for key, f in floors.items()}
+    loss_limit = max(1e-5, FLOOR_MULT * loss_floor)
+    errs = ranks[0]["vs_211"]
+    loss_err = abs(ranks[0]["loss"] - ref[0]["loss"]) / abs(ref[0]["loss"])
+    print(f"[21] one hier step on (2, 2, 1) vs (2, 1, 1) with 2 microbatches, the same state and "
+          f"global batch: loss {ranks[0]['loss']:.6f} vs {ref[0]['loss']:.6f} ({loss_err:.3e}, "
+          f"limit {loss_limit:.3e}); synced gradients, the worst {worst_text(errs)}; noise floor "
+          f"(the batch's rows reversed) the worst {worst_text(floors)}, loss {loss_floor:.3e}")
+    if loss_err > loss_limit:
+        fail(f"[21] loss {loss_err:.3e} from the (2, 1, 1) step's (> {loss_limit:.3e})")
+    over = [key for key, e in errs.items() if not e <= limits[key]]
+    if over:
+        fail(f"[21] {over[0]}: the synced gradient {errs[over[0]]:.3e} of its norm from the "
+             f"(2, 1, 1) step's (> {limits[over[0]]:.3e})")
 
 
 def run_topk(shapes, dev, filter_ms: float) -> dict:
@@ -2225,13 +2526,19 @@ def main() -> None:
     # ---- 19. rwkv6-7b across two pods on the emptied card
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    run_pods()
+    flat_bytes = run_pods()
     print(f"  [19] took {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 20. geococo's chunked top-k over phase 9's gradient share
     t_phase = time.perf_counter()
     run_topk(gradient_shapes(), dev, filt["timings"]["f32"]["ms"])
     print(f"  [20] took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 21. rwkv6-7b on a (2, 2, 1) mesh on the emptied card
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    run_inpod(flat_bytes)
+    print(f"  [21] took {time.perf_counter() - t_phase:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

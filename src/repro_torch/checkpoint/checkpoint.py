@@ -113,10 +113,11 @@ def _load(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, like: Any) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, device: str | torch.device | None = None) -> Any:
     """A tree of ``like``'s structure holding checkpoint ``step``: each
-    tensor leaf on the device of the leaf it replaces, in the checkpoint's
-    dtype, each int leaf an int.  Raises on a missing
+    tensor leaf on ``device``, by default the device of the leaf it
+    replaces (``like`` may then lie on the meta device), in the
+    checkpoint's dtype, each int leaf an int.  Raises on a missing
     leaf or a shape that differs."""
     d = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(d, "meta.json")) as f:
@@ -139,7 +140,7 @@ def restore(ckpt_dir: str, step: int, like: Any) -> Any:
             raise ValueError(f"leaf {key!r}: checkpoint shape {tuple(arr.shape)} != expected {expect}")
         if isinstance(tree, int):
             return int(arr)
-        return arr.to(getattr(tree, "device", "cpu"))
+        return arr.to(device if device is not None else getattr(tree, "device", "cpu"))
 
     return build(like, "")
 

@@ -14,8 +14,11 @@
 Strategies register under ``("device_sync", name)`` in the port's registry
 (``repro_torch.core.strategies``), under the reference's names.
 
-The port is multi-controller: one process per pod, each with its own share
-of the batch, so the exchange below is the real one.  Its wire is gloo:
+The port is multi-controller: one process per rank of the mesh, each with
+its own share of the batch, so the exchange below is the real one, over
+the ranks that hold the same blocks in every pod (``dist.inpod``: what a
+rank exchanges is its block of each leaf, as in the reference's fully
+manual ``shard_map``).  Its wire is gloo:
 every message is staged from the device into a pinned host buffer, crosses
 gloo, and is copied back (:class:`PodGroup`).  The top-k, the masks and
 the residuals stay on the device, and so do the relay ring's sums; the
@@ -198,13 +201,14 @@ class WireStats:
 
 
 class PodGroup:
-    """The pod axis' process group, with the host buffers its messages are
-    staged through and the counts of what crossed it.
+    """The process group of one mesh axis (the pod axis; ``dist.inpod``
+    uses it for the in-pod axes too), with the host buffers its messages
+    are staged through and the counts of what crossed it.
 
     gloo moves host tensors only, so a device tensor is copied into a
     pinned host buffer before each gloo call and back after it; the buffers
     are kept and grown to the largest message.  ``rank`` and ``size`` are
-    this process' pod index and the number of pods."""
+    this process' index on the axis and the axis' size."""
 
     def __init__(self, group: dist.ProcessGroup | None = None):
         self.group = group if group is not None else dist.group.WORLD
@@ -213,19 +217,27 @@ class PodGroup:
         self.stats = WireStats()
         self._bufs: list[torch.Tensor | None] = [None, None]
 
-    def _host(self, i: int, like: torch.Tensor) -> torch.Tensor:
-        """Host buffer ``i`` viewed as ``like``'s shape and dtype."""
-        nbytes = like.numel() * like.element_size()
+    def _host(self, i: int, shape: tuple[int, ...], dtype: torch.dtype) -> torch.Tensor:
+        """Host buffer ``i`` viewed as a tensor of ``shape`` and ``dtype``."""
+        nbytes = math.prod(shape) * dtype.itemsize
         buf = self._bufs[i]
         if buf is None or buf.numel() < nbytes:
+            self._bufs[i] = None            # free the old buffer before pinning the new one
             buf = self._bufs[i] = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
-        return buf[:nbytes].view(like.dtype).view(like.shape)
+        return buf[:nbytes].view(dtype).view(shape)
+
+    def _recv_buffer(self, shape: tuple[int, ...], like: torch.Tensor) -> torch.Tensor:
+        """Where a message of ``shape`` and ``like``'s dtype lands on the
+        host: host buffer 1 for a device tensor, a new tensor for a host one."""
+        if like.device.type == "cpu":
+            return torch.empty(shape, dtype=like.dtype)
+        return self._host(1, shape, like.dtype)
 
     def _stage_out(self, x: torch.Tensor, i: int) -> torch.Tensor:
         if x.device.type == "cpu":
             return x.contiguous()
         torch.cuda.synchronize(x.device)
-        host = self._host(i, x)
+        host = self._host(i, tuple(x.shape), x.dtype)
         host.copy_(x)
         return host
 
@@ -253,7 +265,7 @@ class PodGroup:
         together and waited on together."""
         t0 = time.perf_counter()  # lint: allow[wallclock] the wire's host time
         send = self._stage_out(x, 0)
-        recv = torch.empty_like(send) if x.device.type == "cpu" else self._host(1, x)
+        recv = self._recv_buffer(tuple(x.shape), x)
         ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(self.group, dst), self.group),
                dist.P2POp(dist.irecv, recv, dist.get_global_rank(self.group, src), self.group)]
         for req in dist.batch_isend_irecv(ops):
@@ -262,6 +274,47 @@ class PodGroup:
         self.stats.bytes_sent += send.numel() * send.element_size()
         self.stats.host_s += time.perf_counter() - t0  # lint: allow[wallclock] the wire's host time
         return out
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every member's ``x`` (all of one shape), stacked along a new first
+        axis in member order, on ``x``'s device."""
+        t0 = time.perf_counter()  # lint: allow[wallclock] the wire's host time
+        send = self._stage_out(x, 0)
+        recv = self._recv_buffer((self.size, *x.shape), x)
+        dist.all_gather(list(recv.unbind(0)), send, group=self.group)
+        out = self._back(recv, x.device)
+        self.stats.bytes_sent += (self.size - 1) * send.numel() * send.element_size()
+        self.stats.host_s += time.perf_counter() - t0  # lint: allow[wallclock] the wire's host time
+        return out
+
+    def reduce_scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """This member's block of the sum of the members' ``x``: ``x`` is cut
+        along its first axis into as many equal blocks as there are members,
+        member j receives every member's block j and adds them on the
+        device in member order, ``acc = acc + block``."""
+        if self.size == 1:
+            return x
+        t0 = time.perf_counter()  # lint: allow[wallclock] the wire's host time
+        if x.shape[0] % self.size:
+            raise ValueError(f"a first axis of {x.shape[0]} does not split over {self.size} ranks")
+        send = self._stage_out(x, 0).view(self.size, x.shape[0] // self.size, *x.shape[1:])
+        recv = self._recv_buffer(tuple(send.shape), x)
+        ops = []
+        for j in range(self.size):
+            if j != self.rank:
+                peer = dist.get_global_rank(self.group, j)
+                ops += [dist.P2POp(dist.isend, send[j], peer, self.group),
+                        dist.P2POp(dist.irecv, recv[j], peer, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        recv[self.rank].copy_(send[self.rank])
+        blocks = self._back(recv, x.device)
+        self.stats.bytes_sent += (self.size - 1) * send[0].numel() * send.element_size()
+        self.stats.host_s += time.perf_counter() - t0  # lint: allow[wallclock] the wire's host time
+        acc = blocks[0]
+        for j in range(1, self.size):
+            acc = acc + blocks[j]
+        return acc
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +493,11 @@ def estimate_sync_bytes(
 
     The exchange volume model is the ring all-reduce ``2 (P-1)/P`` factor;
     filtered values pay ``bytes_per_value + 4`` for the chunk-local index.
+
+    On a mesh that splits leaves within a pod (``dist.inpod``), one rank's
+    wire is this over the rank's own blocks, ``shard_factor`` 1.  The
+    ``shard_factor`` form over whole leaves counts the pod's devices
+    together, a whole (replicated) leaf once, where each device sends it.
     """
     if n_pods <= 1:
         return 0.0

@@ -1,16 +1,21 @@
-"""The device mesh for training across pods (counterpart of
-``repro.launch.mesh``), and a launcher of local ranks.
+"""The device mesh for training across pods and within them (counterpart
+of ``repro.launch.mesh``), and a launcher of local ranks.
 
-The port runs one process per pod.  Under ``torchrun`` the process group
-comes from the environment; :func:`run_local_ranks` starts the ranks of
-one host itself, over a ``FileStore``, for the tests and ``chip_smoke.py``.
-The group is gloo: its messages are host tensors, which every rank stages
-to and from its device (``dist.collectives.PodGroup``), so several ranks
-can share one card.
+The mesh is ``(P, D, M)`` over the axes (``pod``, ``data``, ``model``),
+one process a rank, the ranks at their coordinates in row-major order over
+the axes, as the reference's mesh orders its devices.  Under ``torchrun``
+the process group comes from the environment; :func:`run_local_ranks`
+starts the ranks of one host itself, over a ``FileStore``, for the tests
+and ``chip_smoke.py``.  The group is gloo: its messages are host tensors,
+which every rank stages to and from its device (``dist.collectives.PodGroup``),
+so several ranks can share one card.  NCCL refuses two ranks on one card,
+and ``DTensor`` on a gloo mesh holds no card tensors, so each rank keeps
+explicit local shards (``dist.inpod``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import math
 import multiprocessing as mp
@@ -24,42 +29,57 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
-from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+from torch.distributed.device_mesh import init_device_mesh
 
 from ..device import resolve_device
 
-__all__ = ["AXES", "check_mesh_shape", "make_mesh", "run_local_ranks"]
+__all__ = ["AXES", "Mesh", "check_mesh_shape", "make_mesh", "run_local_ranks"]
 
 AXES = ("pod", "data", "model")
 
 
 def check_mesh_shape(shape: tuple[int, ...], world_size: int,
                      axes: tuple[str, ...] = AXES) -> None:
-    """Raise ``ValueError`` on a shape this slice cannot run: a mesh that
-    splits a pod (``data`` or ``model`` above 1), or one whose size is not
-    the world size."""
+    """Raise ``ValueError`` on a shape that does not give every axis a size
+    of at least 1, or whose size is not the world size."""
     if len(shape) != len(axes) or any(s < 1 for s in shape):
         raise ValueError(f"mesh {tuple(shape)} does not give the axes {axes} a size each")
-    sizes = dict(zip(axes, shape))
-    inner = {a: s for a, s in sizes.items() if a != "pod" and s > 1}
-    if inner:
-        raise ValueError(
-            f"mesh {tuple(shape)} shards within a pod ({inner}): in-pod sharding is not "
-            "ported yet; it arrives with 6b-ii: in-pod sharding (FSDP2/DTensor, TP, EP)")
     if math.prod(shape) != world_size:
         raise ValueError(f"mesh {tuple(shape)} holds {math.prod(shape)} ranks, "
                          f"the world has {world_size}")
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's view of the mesh: each axis' size (``shape``), this
+    rank's coordinate on each axis (``coords``) and the process groups of
+    the ranks it shares an axis with: ``pod``, ``data`` and ``model`` (the
+    ranks that differ from this one on that axis only, from a
+    ``DeviceMesh``) and ``inpod`` (this rank's pod: every rank of its
+    ``pod`` coordinate, in row-major order over ``data`` and ``model``)."""
+
+    shape: dict[str, int]
+    coords: dict[str, int]
+    groups: dict[str, dist.ProcessGroup]
+
+    def get_group(self, axis: str = "pod") -> dist.ProcessGroup:
+        return self.groups[axis]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...] = AXES,
-              device: str | torch.device | None = None) -> tuple[DeviceMesh, dist.ProcessGroup]:
-    """A ``DeviceMesh`` of ``shape`` over the gloo process group, and its
-    ``pod`` group.  Initialises the group from the environment (``torchrun``)
-    when none is; selects ``device`` (default ``cuda``; without an index,
-    card ``LOCAL_RANK`` modulo the cards there are, so that the ranks of one
-    host share a single card) as this rank's compute device.  The mesh's
-    device type is the CPU: the wire is gloo over host buffers.  Raises on a
-    shape :func:`check_mesh_shape` refuses."""
+              device: str | torch.device | None = None
+              ) -> tuple[Mesh, dict[str, dist.ProcessGroup]]:
+    """The mesh of ``shape`` over the gloo process group, and its ``pod``,
+    ``data``, ``model`` and ``inpod`` groups.  Initialises the group from
+    the environment (``torchrun``) when none is; selects ``device`` (default
+    ``cuda``; without an index, card ``LOCAL_RANK`` modulo the cards there
+    are, so that the ranks of one host share a single card) as this rank's
+    compute device.  The mesh's device type is the CPU: the wire is gloo
+    over host buffers.  Raises on a shape :func:`check_mesh_shape` refuses."""
     device = resolve_device(device)
     if not dist.is_initialized():
         dist.init_process_group("gloo")
@@ -70,8 +90,17 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...] = AXES,
     if device.type == "cuda":       # without an index: the launcher's local rank, over the cards
         torch.cuda.set_device(device.index if device.index is not None else
                               int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
-    mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
-    return mesh, mesh.get_group("pod")
+    device_mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
+    groups = {axis: device_mesh.get_group(axis) for axis in axes}
+    per_pod = math.prod(shape[1:])
+    groups["inpod"], _ = dist.new_subgroups_by_enumeration(
+        [list(range(p * per_pod, (p + 1) * per_pod)) for p in range(shape[0])])
+    rank = dist.get_rank()
+    coords, rest = {}, rank
+    for axis, size in reversed(list(zip(axes, shape))):
+        coords[axis], rest = rest % size, rest // size
+    mesh = Mesh(dict(zip(axes, shape)), {a: coords[a] for a in axes}, groups)
+    return mesh, groups
 
 
 def _rank_main(fn: Callable, rank: int, world_size: int, store: str, timeout: float,

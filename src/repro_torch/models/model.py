@@ -22,6 +22,8 @@ slice that will port it.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.utils.checkpoint
 
@@ -201,6 +203,7 @@ def forward(
     *,
     cache: Params | None = None,
     compute_dtype: torch.dtype = torch.bfloat16,
+    gather: Callable[[str, Params], Params] | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
     """``batch["tokens"]`` is (B, S).  Returns (logits (B, S, V) in
     ``compute_dtype``, new_cache or None).
@@ -209,27 +212,38 @@ def forward(
     block runs under ``torch.utils.checkpoint``: its activations are freed
     and recomputed in the backward, the per-block counterpart of the JAX
     package's ``jax.checkpoint`` over each scanned superblock.  The values
-    are the same either way."""
+    are the same either way.
+
+    ``gather(key, subtree)`` gives the parameters a part of the model uses
+    (``embed``, ``layers/{i}``, ``final_norm``, ``lm_head``) from what
+    ``params`` holds there, just before that part runs, and inside the
+    checkpointed block, so that remat's recompute gathers a block's
+    parameters again (``dist.inpod.gather_tree``: a rank holds blocks of
+    the leaves).  By default ``params`` holds the whole leaves."""
     _check_ported(cfg)
-    x = embed_apply(params["embed"], batch["tokens"], compute_dtype)
+    if gather is None:
+        def gather(key: str, sub: Params) -> Params:
+            return sub
+    x = embed_apply(gather("embed", params["embed"]), batch["tokens"], compute_dtype)
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     new_layers = []
     for i, blk in enumerate(cfg.block_list()):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
-                lambda p, xx, blk=blk: _block_apply(cfg, blk, p, xx, None)[0],
+                lambda p, xx, blk=blk, i=i: _block_apply(cfg, blk, gather(f"layers/{i}", p),
+                                                         xx, None)[0],
                 params["layers"][i], x, use_reentrant=False,
             )
             new_layers.append(None)
             continue
         c = cache["layers"][i] if cache is not None else None
-        x, nc = _block_apply(cfg, blk, params["layers"][i], x, c)
+        x, nc = _block_apply(cfg, blk, gather(f"layers/{i}", params["layers"][i]), x, c)
         new_layers.append(nc)
-    x = rmsnorm_apply(params["final_norm"], x, eps=cfg.norm_eps)
+    x = rmsnorm_apply(gather("final_norm", params["final_norm"]), x, eps=cfg.norm_eps)
     if "lm_head" in params:
-        logits = dense_apply(params["lm_head"], x)
+        logits = dense_apply(gather("lm_head", params["lm_head"]), x)
     else:
-        logits = unembed_apply(params["embed"], x)
+        logits = unembed_apply(gather("embed", params["embed"]), x)
     return logits, ({"layers": new_layers} if cache is not None else None)
 
 

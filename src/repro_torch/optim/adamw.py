@@ -70,14 +70,19 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params: Any, grads: Any, state: dict,
-                 cfg: AdamWConfig) -> tuple[Any, dict, dict]:
+def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig, *,
+                 gnorm: torch.Tensor | None = None) -> tuple[Any, dict, dict]:
     """One optimizer step, in place: ``params``, ``state["m"]``,
     ``state["v"]`` and ``state["step"]`` are updated and returned.  Returns
     (params, state, metrics) with metrics {"grad_norm", "lr"} as 0-d f32
-    tensors on the parameters' device."""
+    tensors on the parameters' device.  The clip scale comes from
+    ``gnorm``, the norm of the whole gradient, which a rank holding blocks
+    of the leaves (``dist.inpod``) passes in; by default
+    ``global_norm(grads)``.  Everything else is elementwise, so it runs on
+    blocks as on whole leaves."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     lr = cosine_lr(cfg, step)
     b1c = 1.0 - cfg.b1 ** step.float()

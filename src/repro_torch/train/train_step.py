@@ -1,13 +1,21 @@
 """Train and serve step builders (counterpart of ``repro.train.train_step``).
 
-The whole model sits on each rank's card.  With a mesh of more than one pod
-(``launch.mesh.make_mesh``, shape ``(P, 1, 1)``: one process per pod), each
-pod computes the loss on its rows of the global batch, and the gradients are
-exchanged once a step by ``dist.collectives.sync_gradients`` under
-``TrainConfig.sync``, in the reference's leaf layout
-(``dist.grouping``), before AdamW.  With no mesh or one pod there is no
-exchange (the reference's ``build_train_step`` skips its pod sync when
-``n_pods == 1`` too).
+Without a mesh the whole model sits on the rank's card.  On a mesh
+``(P, D, M)`` (``launch.mesh.make_mesh``: one process a rank) each rank
+holds its blocks of the parameters, of AdamW's m and v and of the
+residuals, placed by the reference's rule (``dist.sharding``, applied per
+layer through ``dist.grouping.leaf_specs``; under ``flat`` every leaf is
+whole).  A step computes the loss on the rank's rows of the global batch
+(split over ``pod`` and ``data`` as the reference's ``_fit_batch_axes``
+splits it; ranks along ``model`` share rows), gathering each block's
+parameters just before it runs and again in remat's recompute
+(``dist.inpod``); the backward turns each gradient into this rank's block
+of the pod's mean gradient as soon as autograd completes it.  The blocks,
+grouped as the reference stacks them (``dist.grouping``), are exchanged
+across the pods by ``dist.collectives.sync_gradients`` under
+``TrainConfig.sync``, and AdamW updates the blocks, its clip from the norm
+of the whole gradient.  With one pod there is no exchange (the reference's
+``build_train_step`` skips its pod sync when ``n_pods == 1`` too).
 """
 
 from __future__ import annotations
@@ -22,13 +30,19 @@ import torch.distributed as dist
 from ..configs.base import ModelConfig
 from ..device import resolve_device, synchronize
 from ..dist.collectives import PodGroup, SyncConfig, WireStats, sync_gradients
-from ..dist.grouping import group_like_reference, ungroup
+from ..dist.grouping import group_like_reference, leaf_specs, ungroup
+from ..dist.inpod import InPodGroup, gather_tree
+from ..dist.sharding import batch_rows
 from ..models.layers import Params
 from ..models.model import forward
 from ..optim.adamw import AdamWConfig, adamw_update
 from ..tree import leaves
 
-__all__ = ["TrainConfig", "loss_fn", "grads_and_loss", "build_train_step", "build_serve_step"]
+__all__ = ["TrainConfig", "loss_fn", "grads_and_loss", "check_mesh_arch", "SyncGrads",
+           "build_train_step", "build_serve_step"]
+
+# what the port leaves to a later slice on a mesh, by the slice that brings it
+_EP_SLICE = "6b-ii-b: tensor- and expert-parallel compute"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,28 +56,30 @@ class TrainConfig:
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict[str, torch.Tensor],
-            compute_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+            compute_dtype: torch.dtype = torch.bfloat16, gather=None) -> torch.Tensor:
     """Mean next-token NLL of ``batch["labels"]``, from an f32 log-softmax
-    of the logits."""
-    logits, _ = forward(cfg, params, batch, compute_dtype=compute_dtype)
+    of the logits.  ``gather`` as ``models.model.forward`` takes it."""
+    logits, _ = forward(cfg, params, batch, compute_dtype=compute_dtype, gather=gather)
     lp = torch.log_softmax(logits.float(), dim=-1)
     return -torch.gather(lp, -1, batch["labels"].long()[..., None])[..., 0].mean()
 
 
 def grads_and_loss(cfg: ModelConfig, tcfg: TrainConfig, params: Params,
-                   batch: dict[str, torch.Tensor]) -> tuple[list[torch.Tensor], torch.Tensor]:
+                   batch: dict[str, torch.Tensor], gather=None
+                   ) -> tuple[list[torch.Tensor], torch.Tensor]:
     """Gradients of ``loss_fn`` for every leaf of ``params`` (in the order of
     ``tree.leaves``) and the loss.  With ``tcfg.microbatches`` = m > 1
     the batch is cut into m equal splits along its first axis; their
     gradients are summed in f32, divided by m and cast to each parameter's
-    dtype, and the loss is the mean of theirs."""
+    dtype, and the loss is the mean of theirs.  Under ``gather`` (blocks of
+    the leaves, ``dist.inpod.gather_tree``) these are the blocks' gradients."""
     ps = leaves(params)
     for p in ps:
         if not p.requires_grad:
             p.requires_grad_(True)
     n_micro = max(1, tcfg.microbatches)
     if n_micro == 1:
-        loss = loss_fn(cfg, params, batch, tcfg.compute_dtype)
+        loss = loss_fn(cfg, params, batch, tcfg.compute_dtype, gather)
         return list(torch.autograd.grad(loss, ps)), loss.detach()
     size = next(iter(batch.values())).shape[0]
     if size % n_micro:
@@ -72,7 +88,8 @@ def grads_and_loss(cfg: ModelConfig, tcfg: TrainConfig, params: Params,
     lsum = torch.zeros((), dtype=torch.float32, device=ps[0].device)
     for i in range(n_micro):
         sl = slice(i * size // n_micro, (i + 1) * size // n_micro)
-        loss = loss_fn(cfg, params, {k: v[sl] for k, v in batch.items()}, tcfg.compute_dtype)
+        loss = loss_fn(cfg, params, {k: v[sl] for k, v in batch.items()}, tcfg.compute_dtype,
+                       gather)
         for acc, g in zip(gsum, torch.autograd.grad(loss, ps)):
             acc.add_(g.float())
         lsum += loss.detach()
@@ -84,9 +101,86 @@ _INTS = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.int8}
 
 def _checksums(tensors: list[torch.Tensor]) -> torch.Tensor:
     """Per tensor, the int64 sum of its elements' bits read as integers: two
-    pods' parameters agree bit for bit where these do."""
+    ranks' parameters agree bit for bit where these do."""
+    if not tensors:
+        return torch.zeros(0, dtype=torch.int64)
     return torch.stack([t.detach().view(_INTS[t.element_size()]).sum(dtype=torch.int64)
                         for t in tensors]).cpu()
+
+
+def _differ(sums: torch.Tensor, group: dist.ProcessGroup) -> list[int]:
+    """The ranks of ``group`` whose ``sums`` differ from this rank's."""
+    every = [torch.empty_like(sums) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, sums, group=group)
+    return [r for r, s in enumerate(every) if not torch.equal(s, sums)]
+
+
+def check_mesh_arch(cfg: ModelConfig, mesh_shape: dict[str, int]) -> None:
+    """Raise ``ValueError`` where ``cfg`` on a mesh of ``mesh_shape`` needs
+    compute the port has not yet: a mixture of experts with ``model`` above
+    1, where the reference runs its expert-parallel dispatch, whose
+    capacity comes from each device's tokens."""
+    if cfg.moe is not None and mesh_shape.get("model", 1) > 1:
+        raise ValueError(f"{cfg.name} on a mesh with model = {mesh_shape['model']}: the "
+                         f"reference dispatches its experts in parallel over model, which is "
+                         f"not ported yet; it arrives with {_EP_SLICE}")
+
+
+class SyncGrads:
+    """``grads(params, batch, residuals=None) -> (grads, loss, parts)``:
+    the part of the step on a mesh before AdamW.  ``params`` holds this
+    rank's blocks (``build_train_step``); ``batch`` is the global batch.
+    ``grads`` are this rank's blocks of the synced gradient (in
+    ``tree.leaves`` order), ``loss`` this rank's, ``parts`` the host
+    seconds and counts of the parts (``compute_s``, ``inpod_s``,
+    ``inpod_host_s``, ``exchange_s``, ...; see ``build_train_step``).
+    ``residuals`` are replaced in place.  ``pods`` and ``inpod`` are the
+    rank's groups, ``specs`` every port leaf's spec by key."""
+
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, device: str | torch.device | None,
+                 mesh):
+        check_mesh_arch(cfg, mesh.shape)
+        self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
+        self.device = resolve_device(device)
+        self.pods = PodGroup(mesh.get_group("pod"))
+        self.inpod = InPodGroup(mesh)
+        self.specs = leaf_specs(cfg, mesh.shape, tcfg.sync.strategy)
+
+    def _gather(self, key: str, sub: Params) -> Params:
+        return gather_tree(self.inpod, self.specs, key, sub)
+
+    def __call__(self, params: Params, batch: dict[str, torch.Tensor],
+                 residuals: dict | None = None) -> tuple[list[torch.Tensor], torch.Tensor, dict]:
+        cfg, tcfg, pods, inpod, device = self.cfg, self.tcfg, self.pods, self.inpod, self.device
+        if tcfg.sync.needs_residuals and pods.size > 1 and residuals is None:
+            raise ValueError(f"{tcfg.sync.strategy} carries residuals: pass them to the step")
+        rows = next(iter(batch.values())).shape[0]
+        own = batch_rows(self.mesh.shape, self.mesh.coords, rows)
+        batch = {k: v[own].to(device) for k, v in batch.items()}
+        clock = time.perf_counter  # lint: allow[wallclock] the step's parts
+        inpod.reset()
+        pods.stats = WireStats()
+        synchronize(device)
+        t0 = clock()
+        local, loss = grads_and_loss(cfg, tcfg, params, batch, self._gather)
+        synchronize(device)
+        t1 = clock()
+        inpod_s, inpod_host_s = inpod.wall_s, inpod.stats.host_s
+        grouped = group_like_reference(cfg, local)
+        del local
+        synced, new_res = sync_gradients(grouped, residuals, tcfg.sync, group=pods)
+        del grouped
+        if residuals is not None and new_res is not residuals:
+            residuals.update(new_res)
+        out = ungroup(cfg, synced)
+        del synced
+        synchronize(device)
+        stats = pods.stats
+        return out, loss, dict(
+            compute_s=t1 - t0, inpod_s=inpod_s, inpod_host_s=inpod_host_s,
+            exchange_s=clock() - t1, exchange_host_s=stats.host_s,
+            dense_values=float(stats.dense_values), sparse_values=float(stats.sparse_values),
+            nonzero_sent=float(stats.nonzero_sent), bytes_sent=stats.bytes_sent)
 
 
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -97,25 +191,28 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     params and state must already be there.  ``metrics`` holds 0-d f32
     tensors ``loss``, ``grad_norm`` and ``lr`` (no host sync).
 
-    With a ``mesh`` (a ``DeviceMesh`` with a ``pod`` axis) of P > 1 pods,
-    ``batch`` is the global batch: this pod takes its rows
-    ``[p B / P, (p + 1) B / P)``, and after the backward the gradients,
-    grouped as the reference stacks them, go through ``sync_gradients``
-    with ``residuals`` (f32, grouped; required when ``tcfg.sync`` carries
-    them), which the step replaces in place by the new ones.  ``loss`` is
-    then the mean over the pods, ``pods_agree`` 1.0: every pod ends the
-    step with the same parameters, bit for bit, and the step raises
-    ``RuntimeError`` on every pod where they differ.  ``metrics`` also
-    holds the host
-    seconds of the step's parts (``compute_s``: forward and backward;
-    ``exchange_s``: grouping, exchange and ungrouping, of which
-    ``exchange_host_s`` staging and gloo; ``adamw_s``) and the wire's counts
-    (``dense_values``, ``sparse_values``, ``nonzero_sent``, ``bytes_sent``:
-    ``dist.collectives.WireStats``), each a float."""
+    With a ``mesh`` (``launch.mesh.Mesh``) of more than one rank, ``params``,
+    ``opt_state`` and ``residuals`` (f32, grouped; required when
+    ``tcfg.sync`` carries them) hold this rank's blocks (by
+    ``dist.grouping.leaf_specs``), ``batch`` is the global
+    batch, and the step is the one the module docstring describes; it
+    replaces the residuals in place.  ``loss`` is then the mean over the
+    ranks, ``pods_agree`` 1.0: the ranks of each pod group (one ``data``
+    and ``model`` coordinate) end the step with the same blocks, bit for
+    bit, and the ranks of a pod with the same whole leaves, and the step
+    raises ``RuntimeError`` where they differ.  ``metrics`` also holds the
+    host seconds of the step's parts, each ending in a device synchronise
+    (``compute_s``: forward and backward, of which ``inpod_s`` the in-pod
+    gathers and reduce-scatters, of which ``inpod_host_s`` staging and
+    gloo; ``exchange_s``: grouping, the pod exchange and ungrouping, of
+    which ``exchange_host_s`` staging and gloo; ``adamw_s``, with the
+    norm's in-pod sum), the bytes handed to gloo in-pod (``inpod_bytes``)
+    and the pod wire's counts (``dense_values``, ``sparse_values``,
+    ``nonzero_sent``, ``bytes_sent``: ``dist.collectives.WireStats``),
+    each a float."""
     device = resolve_device(device)
-    pods = PodGroup(mesh.get_group("pod")) if mesh is not None else None
 
-    if pods is None or pods.size <= 1:
+    if mesh is None or mesh.size <= 1:
         def step(params: Params, opt_state: dict, batch: dict[str, torch.Tensor],
                  residuals: dict | None = None) -> dict:
             batch = {k: v.to(device) for k, v in batch.items()}
@@ -125,55 +222,37 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
         return step
 
-    n = pods.size
+    sync = SyncGrads(cfg, tcfg, device, mesh)
+    inpod, pods = sync.inpod, sync.pods
+    specs = list(sync.specs.values())
+    replicated = [i for i, spec in enumerate(specs) if not any(spec)]
 
-    def pod_step(params: Params, opt_state: dict, batch: dict[str, torch.Tensor],
-                 residuals: dict | None = None) -> dict:
-        if tcfg.sync.needs_residuals and residuals is None:
-            raise ValueError(f"{tcfg.sync.strategy} carries residuals: pass them to the step")
-        rows = next(iter(batch.values())).shape[0]
-        if rows % n:
-            raise ValueError(f"a global batch of {rows} does not split over {n} pods")
-        own = slice(pods.rank * rows // n, (pods.rank + 1) * rows // n)
-        batch = {k: v[own].to(device) for k, v in batch.items()}
+    def mesh_step(params: Params, opt_state: dict, batch: dict[str, torch.Tensor],
+                  residuals: dict | None = None) -> dict:
+        grads, loss, parts = sync(params, batch, residuals)
         clock = time.perf_counter  # lint: allow[wallclock] the step's parts
-        synchronize(device)
-        t0 = clock()
-        grads, loss = grads_and_loss(cfg, tcfg, params, batch)
-        synchronize(device)
-        t1 = clock()
-        pods.stats = WireStats()
-        grouped = group_like_reference(cfg, grads)
-        del grads
-        synced, new_res = sync_gradients(grouped, residuals, tcfg.sync, group=pods)
-        del grouped
-        if residuals is not None and new_res is not residuals:
-            residuals.update(new_res)
-        grads = ungroup(cfg, synced)
-        del synced
-        synchronize(device)
         t2 = clock()
-        _, _, metrics = adamw_update(params, grads, opt_state, tcfg.optim)
+        gnorm = inpod.global_norm(grads, specs)
+        _, _, metrics = adamw_update(params, grads, opt_state, tcfg.optim, gnorm=gnorm)
+        del grads
         synchronize(device)
         t3 = clock()
         total = loss.detach().float().reshape(1).cpu()
-        dist.all_reduce(total, group=pods.group)
-        sums = _checksums(leaves(params))
-        every = [torch.empty_like(sums) for _ in range(n)]
-        dist.all_gather(every, sums, group=pods.group)
-        differ = [p for p, s in enumerate(every) if not torch.equal(s, sums)]
+        dist.all_reduce(total)
+        ps = leaves(params)
+        differ = _differ(_checksums(ps), pods.group)
         if differ:
             raise RuntimeError(f"pod {pods.rank}: the parameters of pods {differ} differ "
                                f"from this pod's after the exchange")
-        stats = pods.stats
-        return dict(metrics, loss=total[0] / n, pods_agree=1.0,
-                    compute_s=t1 - t0, exchange_s=t2 - t1,
-                    exchange_host_s=stats.host_s, adamw_s=t3 - t2,
-                    dense_values=float(stats.dense_values),
-                    sparse_values=float(stats.sparse_values),
-                    nonzero_sent=float(stats.nonzero_sent), bytes_sent=stats.bytes_sent)
+        if inpod.size > 1:
+            differ = _differ(_checksums([ps[i] for i in replicated]), mesh.get_group("inpod"))
+            if differ:
+                raise RuntimeError(f"rank {dist.get_rank()}: the whole leaves of in-pod ranks "
+                                   f"{differ} differ from this rank's after the step")
+        return dict(metrics, **parts, loss=total[0] / dist.get_world_size(), pods_agree=1.0,
+                    adamw_s=t3 - t2, inpod_bytes=inpod.stats.bytes_sent)
 
-    return pod_step
+    return mesh_step
 
 
 def build_serve_step(cfg: ModelConfig, tcfg: TrainConfig, *, kind: str = "decode",

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from typing import Any
 
-__all__ = ["leaf_paths", "leaves"]
+__all__ = ["leaf_paths", "leaves", "map_paths"]
 
 
 def leaf_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
@@ -31,3 +31,17 @@ def leaf_paths(tree: Any, prefix: str = "") -> list[tuple[str, Any]]:
 def leaves(tree: Any) -> list[Any]:
     """The leaves of ``tree`` in ``leaf_paths`` order."""
     return [leaf for _, leaf in leaf_paths(tree)]
+
+
+def map_paths(tree: Any, fn, prefix: str = "") -> Any:
+    """A tree of ``tree``'s structure holding ``fn(key, leaf)`` at every
+    leaf, ``key`` its ``leaf_paths`` key under ``prefix``."""
+    if isinstance(tree, dict):
+        return {k: map_paths(v, fn, f"{prefix}/{k}" if prefix else str(k))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_paths(v, fn, f"{prefix}/{i}" if prefix else str(i))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(prefix, tree)

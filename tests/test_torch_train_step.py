@@ -285,8 +285,9 @@ def test_train_cli_on_the_cpu(capsys):
     assert "done: loss" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "2,1,2"], ["--mesh", "2,2,2"], ["--control"],
-                                  ["--control-noise", "0.2"]])
+@pytest.mark.parametrize("flag", [["--arch", "granite-moe-3b-a800m", "--mesh", "2,1,2"],
+                                  ["--arch", "granite-moe-3b-a800m", "--mesh", "1,1,2"],
+                                  ["--control"], ["--control-noise", "0.2"]])
 def test_train_cli_refuses_what_needs_a_later_slice(flag, capsys):
     with pytest.raises(SystemExit) as err:
         train_mod.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu", *flag])
