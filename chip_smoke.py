@@ -121,12 +121,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    Printed per step and rank: compute, the in-pod gathers and
    reduce-scatters and the pod exchange (device and host parts), AdamW,
    the bytes to gloo in-pod and across the pods; peak memory a rank; hier's
-   bytes across the pod against phase 19's flat on (2, 1, 1).
+   bytes across the pod against phase 19's flat on (2, 1, 1);
+22. granite-moe-3b-a800m on a (1, 2, 2) mesh: four ranks spawned on the
+   card, at full width and 8 of 32 layers on a 2 x 4096 global batch (1 x
+   4096 a data rank, shared along model), the published capacity factor
+   1.25, bf16 compute, remat, hier: each rank computes 12 of the 24 q
+   heads (4 of the 8 kv heads) and 20 of the 40 experts, summed over
+   model, on expert weights gathered over data; 3 steps of ``train()``,
+   every kernel's count read around them in each rank.  Gated: finite
+   losses, the same on every rank; the whole leaves of the pod
+   bit-identical after every step (the step raises otherwise); every
+   kernel's count 0; step 1 in f64 compute from the same state and batch
+   against one process on (1, 1, 1) with 2 microbatches (one a data
+   rank's row, so each routes its 4096 tokens alone, as the reference's
+   expert parallelism does): each synced gradient leaf within 4 x its
+   noise floor (the yardstick from parameters one f64 ulp off) or 1e-3 of
+   its norm, the loss within 1e-4, each rank's MoE drop rate equal to its
+   microbatch's (f64, because an f32 reassociation can flip a routing
+   near-tie at this size, a different routing rather than a rounding).  Printed per step and
+   rank: compute, the in-pod gathers and reduce-scatters (device and host
+   parts), the model sums and count prefix (``tp_s``), AdamW, the bytes to
+   gloo in-pod and of the model sums (``tp_bytes``), the drops; peak memory
+   a rank.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13 and 15-21 each on an empty card after the phase
+released, and phases 11, 13 and 15-22 each on an empty card after the phase
 before.  Each phase prints its wall time.
 
 The line before the last lists the kernels as JSON; the last line is
@@ -260,6 +281,23 @@ POD_TIMEOUT = 600
 INPOD_MESH, INPOD_BATCH = (2, 2, 1), 4
 INPOD_HIER_STEPS, INPOD_GEO_STEPS = 3, 3
 INPOD_TIMEOUT = 900
+# phase 22: granite-moe-3b-a800m at full width and 8 of its 32 layers on a
+# (1, 2, 2) mesh, four ranks on the one card: attention heads and experts
+# split over model, the expert weights gathered over data; global batch 2 x
+# 4096 (1 x 4096 a data rank, shared along model), the published capacity
+# factor, bf16, remat, hier: TP_STEPS steps of train().  Step 1 is held in
+# f64 compute against one process on (1, 1, 1) with 2 microbatches (each a
+# data rank's row: the reference's expert-parallel routing) from the same
+# state and batch: gradients at FLOOR_MULT x their floor (the yardstick
+# from parameters one f64 ulp off) or TRAIN_GRAD_TOL, the loss at
+# TP_LOSS_TOL, each rank's drop rate equal to its microbatch's.  Not in
+# f32: routing is discrete, and at 8 layers x 8192 tokens an f32
+# reassociation (the split sums over model) flips an assignment at a
+# near-tie now and then, which moves late layers' gradients by 1e-3 of
+# their norm; in f64 such a tie is ~1e9 times rarer
+TP_MESH, TP_LAYERS, TP_BATCH, TP_STEPS = (1, 2, 2), 8, 2, 3
+TP_CAPACITY, TP_LOSS_TOL, TP_CHECK_DTYPE = 1.25, 1e-4, "float64"
+TP_TIMEOUT = 600
 
 
 def fail(msg: str) -> None:
@@ -2347,6 +2385,241 @@ def run_inpod(flat_bytes: float) -> None:
              f"(2, 1, 1) step's (> {limits[over[0]]:.3e})")
 
 
+def tp_config():
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config(MOE)
+    if cfg.moe.capacity_factor != TP_CAPACITY:
+        fail(f"[22] {MOE}'s capacity factor is {cfg.moe.capacity_factor}, not {TP_CAPACITY}")
+    return dataclasses.replace(cfg, n_layers=TP_LAYERS)
+
+
+def tp_data(cfg):
+    from repro_torch.data.pipeline import DataConfig
+
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=POD_SEQ, global_batch=TP_BATCH, seed=0)
+
+
+def kernel_counters() -> dict:
+    """Every kernel wrapper of the port, by name, for ``counted``."""
+    from repro_torch.kernels.crdt_merge import ops as merge_ops
+    from repro_torch.kernels.rglru_scan import ops as rglru_ops
+    from repro_torch.kernels.rwkv6_wkv import ops as wkv6_ops
+    from repro_torch.kernels.whitedata_filter import ops as filter_ops
+
+    return {"wkv6": wkv6_ops.wkv6, "wkv6_backward": wkv6_ops.wkv6_backward,
+            "rglru_scan": rglru_ops.rglru_scan, "rglru_scan_backward": rglru_ops.rglru_scan_backward,
+            "whitedata_filter": filter_ops.whitedata_filter, "crdt_merge": merge_ops.crdt_merge}
+
+
+def tp_yardstick_rank(rank: int, out_dir: str) -> dict:
+    """Phase 22's yardstick, in one spawned process on cuda:0 (the mesh
+    (1, 1, 1)): the gradient of step 1 from the seed-0 parameters and the
+    first global batch with 2 microbatches, one a ``data`` rank's row, in
+    ``TP_CHECK_DTYPE`` compute (each microbatch routes its 4096 tokens
+    alone, as the reference's expert parallelism routes a ``data``
+    shard's); its noise floor, the same from the parameters in f64, each
+    moved by one unit in the last place, up or down at random (the rows
+    reversed would be no floor: the two microbatches' gradients add in
+    either order to the same bits); each microbatch's MoE drop counts (a
+    forward under a context of one rank, which counts them).  The
+    gradient is written to ``out_dir``."""
+    import os
+
+    import torch
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.dist.context import DistContext, distribution
+    from repro_torch.models.model import forward, init_params
+    from repro_torch.train.train_step import TrainConfig, grads_and_loss
+    from repro_torch.tree import leaf_paths
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    cfg = tp_config()
+    cdt = getattr(torch, TP_CHECK_DTYPE)
+    tcfg = TrainConfig(compute_dtype=cdt, microbatches=TP_BATCH)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = make_batch(tp_data(cfg), 0, dev)
+    grads, loss = grads_and_loss(cfg, tcfg, params, batch)
+    gen = torch.Generator(device=dev).manual_seed(1)
+
+    def nudged(p):
+        up = torch.randint(0, 2, p.shape, generator=gen, device=dev, dtype=torch.bool)
+        return torch.nextafter(p.detach().double(), torch.where(up, math.inf, -math.inf))
+
+    nudged_grads, loss_nudged = grads_and_loss(cfg, tcfg, map_tree(params, nudged), batch)
+    keys = [key for key, _ in leaf_paths(params)]
+    floors = {key: float((a - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+              for key, a, b in zip(keys, nudged_grads, grads)}
+    del nudged_grads
+    torch.save({key: g.detach().cpu() for key, g in zip(keys, grads)},
+               os.path.join(out_dir, "grads.pt"))
+    del grads
+    drops = []
+    for row in range(TP_BATCH):
+        ctx = DistContext({}, {})
+        with distribution(ctx), torch.no_grad():
+            forward(cfg, params, {k: v[row:row + 1] for k, v in batch.items()},
+                    compute_dtype=cdt)
+        drops.append((float(ctx.moe_dropped), ctx.moe_assigned))
+    return {"floors": floors, "loss": float(loss), "loss_nudged": float(loss_nudged),
+            "drops": drops, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def tp_rank(rank: int, ref_dir: str) -> dict:
+    """Phase 22, in one of four spawned processes, all on cuda:0, on the
+    (1, 2, 2) mesh: the main path (train() with hier, bf16) with every
+    kernel's count read around it, then one step's synced gradient in
+    ``TP_CHECK_DTYPE`` compute from the seed-0 state against the
+    yardstick's in ``ref_dir``, and the MoE's drop counts of that step."""
+    import math
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.dist.collectives import SyncConfig
+    from repro_torch.dist.grouping import leaf_specs
+    from repro_torch.dist.sharding import local_shard
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import StatePlacement, train
+    from repro_torch.models.model import init_params
+    from repro_torch.train.train_step import SyncGrads, TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    mesh, _ = make_mesh(TP_MESH, device=dev)
+    cfg = tp_config()
+    data = tp_data(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    hist, counts = counted(kernel_counters(), lambda: train(
+        cfg, TrainConfig(sync=SyncConfig("hier")), data, TP_STEPS, seed=0, device=dev, mesh=mesh))
+    out = {"coords": dict(mesh.coords), "history": hist, "launches": counts,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.cuda.empty_cache()
+
+    check = TrainConfig(sync=SyncConfig("hier"), compute_dtype=getattr(torch, TP_CHECK_DTYPE))
+    full = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    params = StatePlacement(cfg, check, dev, mesh).place(full, "params")
+    del full
+    sync = SyncGrads(cfg, check, dev, mesh)
+    grads, loss, _ = sync(params, make_batch(data, 0))
+    out["drops"] = (float(sync.ctx.moe_dropped), sync.ctx.moe_assigned)
+    want = torch.load(os.path.join(ref_dir, "grads.pt"), mmap=True)
+    specs = leaf_specs(cfg, mesh.shape, "hier")
+    sums = []
+    for (key, spec), got in zip(specs.items(), grads):
+        w = local_shard(want[key], spec, mesh.coords, mesh.shape).to(dev)
+        part = torch.stack([(got.float() - w.float()).square().sum(), w.float().square().sum()])
+        sums.append(part if sync.inpod.counts_once(spec) else torch.zeros_like(part))
+    total = sync.inpod.all_reduce_sum(torch.stack(sums)).cpu()
+    out["vs_yardstick"] = {key: math.sqrt(d) / max(math.sqrt(n), 1e-30)
+                           for key, (d, n) in zip(specs, total.tolist())}
+    losses = loss.detach().float().reshape(1).cpu()
+    dist.all_reduce(losses)
+    out["loss"] = float(losses[0]) / mesh.size
+    return out
+
+
+def run_tp() -> None:
+    """Phase 22: granite-moe-3b-a800m on a (1, 2, 2) mesh on the card (four
+    ranks of one gloo group), after its yardstick on (1, 1, 1) (one
+    process), gated here across the ranks."""
+    import tempfile
+
+    from repro_torch.dist.context import DistContext
+    from repro_torch.launch.mesh import run_local_ranks
+    from repro_torch.models.layers import tp_heads
+    from repro_torch.models.model import param_count
+
+    cfg = tp_config()
+    sizes = dict(zip(("pod", "data", "model"), TP_MESH))
+    n_ranks = math.prod(TP_MESH)
+    q_heads, kv_heads = tp_heads(cfg.n_heads, cfg.n_kv_heads, sizes["model"], 0)
+    _, e_local, _ = DistContext(sizes, {}).experts(cfg.moe.n_experts)
+    print(f"[22] {cfg.name} on a {TP_MESH} mesh on one card (4 ranks over gloo, each a CUDA "
+          f"context on cuda:0): full width, {TP_LAYERS} of 32 layers, {param_count(cfg):,} "
+          f"parameters; global batch {TP_BATCH} x {POD_SEQ} (1 x {POD_SEQ} a data rank, shared "
+          f"along model), capacity factor {cfg.moe.capacity_factor}, bf16 compute, remat, hier; "
+          f"a rank computes {sum(h >= 0 for h in q_heads)} of {cfg.n_heads} q heads and "
+          f"{len(set(kv_heads))} of {cfg.n_kv_heads} kv heads, {e_local} of "
+          f"{cfg.moe.n_experts} experts, on expert weights gathered over data")
+    with shared_card(), tempfile.TemporaryDirectory(prefix="tp-") as ref_dir:
+        try:
+            t0 = time.perf_counter()
+            ref = run_local_ranks(tp_yardstick_rank, 1, (ref_dir,), timeout=TP_TIMEOUT)[0]
+            print(f"[22] the (1, 1, 1) yardstick (one process, {TP_CHECK_DTYPE}, {TP_BATCH} "
+                  f"microbatches of "
+                  f"1 x {POD_SEQ}) in {time.perf_counter() - t0:.1f} s, peak device memory "
+                  f"{ref['peak_gb']:.2f} GB")
+            ranks = run_local_ranks(tp_rank, n_ranks, (ref_dir,), timeout=TP_TIMEOUT)
+        except (RuntimeError, TimeoutError) as err:
+            fail(f"[22] {err}")
+    want_launches = {name: 0 for name in ranks[0]["launches"]}
+    for rank, got in enumerate(ranks):
+        if got["launches"] != want_launches:
+            fail(f"[22] rank {rank}: the port's kernels launched {got['launches']}, expected none")
+        for rec in got["history"]:
+            if not math.isfinite(rec["loss"]):
+                fail(f"[22] rank {rank}, step {rec['step']}: loss {rec['loss']}")
+    losses = [[r["loss"] for r in got["history"]] for got in ranks]
+    if any(one != losses[0] for one in losses):
+        fail("[22] the ranks report different mean losses")
+    peaks = ", ".join(f"{got['peak_gb']:.2f}" for got in ranks)
+    print(f"[22] hier: {TP_STEPS} steps of train(), mean losses "
+          f"{', '.join(f'{v:.4f}' for v in losses[0])}; within the pod the whole leaves "
+          f"bit-identical after every step; every kernel's count 0 in every rank; peak device "
+          f"memory a rank {peaks} GB")
+    for rank, got in enumerate(ranks):
+        for rec in got["history"]:
+            compute = rec["compute_s"] - rec["inpod_s"] - rec["tp_s"]
+            print(f"  rank {rank} step {rec['step']}: {rec['dt'] * 1e3:.1f} ms = forward + "
+                  f"backward {compute * 1e3:.1f} + in-pod gathers and reduce-scatters "
+                  f"{rec['inpod_s'] * 1e3:.1f} (device {(rec['inpod_s'] - rec['inpod_host_s']) * 1e3:.1f}"
+                  f", host staging + gloo {rec['inpod_host_s'] * 1e3:.1f}) + model sums and "
+                  f"count prefix {rec['tp_s'] * 1e3:.1f}, AdamW {rec['adamw_s'] * 1e3:.1f}; to "
+                  f"gloo {rec['inpod_bytes'] / 1e9:.3f} GB in-pod, {rec['tp_bytes'] / 1e9:.3f} GB "
+                  f"model sums; MoE assignments dropped {rec['moe_dropped']:.0f} of "
+                  f"{rec['moe_assigned']:.0f}")
+    drops_differ = []
+    for rank, got in enumerate(ranks):
+        row = got["coords"]["data"]
+        dropped, assigned = got["drops"]
+        want_dropped, want_assigned = ref["drops"][row]
+        print(f"  rank {rank} {got['coords']}: MoE drop rate {dropped / assigned:.6f} "
+              f"({dropped:.0f} of {assigned}, forward and remat's recompute), the yardstick's "
+              f"microbatch {row} {want_dropped / want_assigned:.6f} ({want_dropped:.0f} of "
+              f"{want_assigned})")
+        if dropped / assigned != want_dropped / want_assigned:
+            drops_differ.append(rank)
+    floors = ref["floors"]
+    loss_floor = abs(ref["loss_nudged"] - ref["loss"]) / abs(ref["loss"])
+    capped = [key for key, f in floors.items() if f > FLOOR_CAP]
+    if capped or loss_floor > FLOOR_CAP:
+        fail(f"[22] noise floor above {FLOOR_CAP}: {capped or 'the loss'}")
+    limits = {key: max(TRAIN_GRAD_TOL, FLOOR_MULT * f) for key, f in floors.items()}
+    loss_limit = TP_LOSS_TOL
+    errs = ranks[0]["vs_yardstick"]
+    loss_err = abs(ranks[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    share = {key: e / limits[key] for key, e in errs.items()}
+    nearest = sorted(share, key=share.get, reverse=True)[:3]
+    print(f"[22] step 1 in {TP_CHECK_DTYPE} compute on {TP_MESH} vs (1, 1, 1) with {TP_BATCH} "
+          f"microbatches, the same state and global batch: loss {ranks[0]['loss']:.6f} vs {ref['loss']:.6f} "
+          f"({loss_err:.3e}, limit {loss_limit:.3e}); synced gradients, the worst "
+          f"{worst_text(errs)}; noise floor (parameters one f64 ulp off) the worst "
+          f"{worst_text(floors)}, loss {loss_floor:.3e}; nearest their limits "
+          + ", ".join(f"{key} {errs[key]:.3e} of {limits[key]:.3e}" for key in nearest))
+    if drops_differ:
+        fail(f"[22] ranks {drops_differ}: MoE drop rates differ from the yardstick's")
+    if loss_err > loss_limit:
+        fail(f"[22] loss {loss_err:.3e} from the yardstick's (> {loss_limit:.3e})")
+    over = [key for key in nearest if share[key] > 1]
+    if over:
+        fail(f"[22] {over[0]}: the synced gradient {errs[over[0]]:.3e} of its norm from the "
+             f"yardstick's (> {limits[over[0]]:.3e})")
+
 def run_topk(shapes, dev, filter_ms: float) -> dict:
     """Phase 20: geococo's chunked top-k (``topk_select``: f32 g + r, per
     chunk of 2048 the top 10% by magnitude, the sent values and the new
@@ -2540,10 +2813,17 @@ def main() -> None:
     run_inpod(flat_bytes)
     print(f"  [21] took {time.perf_counter() - t_phase:.1f} s")
 
+    # ---- 22. granite-moe-3b-a800m, heads and experts split over model, on the emptied card
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    run_tp()
+    print(f"  [22] took {time.perf_counter() - t_phase:.1f} s")
+
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:
         fail(f"the port imported {leaked}")
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s")
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.0f} s on "
+          f"{smi.splitlines()[0]}")
     print(json.dumps({"kernels": list(entries.values())}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -287,6 +287,15 @@ class PodGroup:
         self.stats.host_s += time.perf_counter() - t0  # lint: allow[wallclock] the wire's host time
         return out
 
+    def all_gather_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the members' ``x`` added on the device in member
+        order, ``acc = acc + x_j``: the same bits on every member."""
+        parts = self.all_gather(x.contiguous())
+        acc = parts[0]
+        for j in range(1, self.size):
+            acc = acc + parts[j]
+        return acc
+
     def reduce_scatter_sum(self, x: torch.Tensor) -> torch.Tensor:
         """This member's block of the sum of the members' ``x``: ``x`` is cut
         along its first axis into as many equal blocks as there are members,

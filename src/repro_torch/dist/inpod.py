@@ -8,8 +8,14 @@ frees it after (:func:`gather_tree`, an autograd function), and the
 backward of that gather turns the leaf's full gradient into this rank's
 block of the pod's gradient, the mean over ``data`` (:meth:`InPodGroup.
 reduce_scatter_mean`).  Ranks along ``model`` compute on the same rows
-with the same gathered weights, so their full gradients are equal: a rank
-keeps its own ``model`` block of it, with no message.  Then each rank
+with the same gathered weights, so outside a ``model``-parallel region
+(``dist.context``) their full gradients are equal: a rank keeps its own
+``model`` block of it, with no message.  A leaf used inside a region
+(attention's projections, the MoE's router and experts, when ``model``
+is above 1) has a part of its gradient on each ``model`` rank: it is
+summed over ``model`` first (a reduce-scatter along the leaf's ``model``
+dimension, else a sum in rank order), then averaged over ``data``.  Then
+each rank
 exchanges its blocks across the pods (``collectives.sync_gradients`` over
 the ranks of its (``data``, ``model``) coordinates), as the reference's
 fully manual ``shard_map`` does: the filter's ``min_leaf_size`` and its
@@ -92,14 +98,22 @@ class InPodGroup:
         self._timed(shard.device, t0)
         return full
 
-    def reduce_scatter_mean(self, grad: torch.Tensor, spec: Spec) -> torch.Tensor:
+    def reduce_scatter_mean(self, grad: torch.Tensor, spec: Spec,
+                            model_parts: bool = False) -> torch.Tensor:
         """This rank's block of the mean over ``data`` of the ranks' full
-        gradients ``grad`` of a leaf of ``spec``: its own ``model`` block,
-        then summed over the ``data`` ranks (their blocks of a split leaf,
-        the whole of a leaf ``data`` does not split) and divided by their
-        number."""
+        gradients ``grad`` of a leaf of ``spec``: its own ``model`` block
+        (with ``model_parts``, the ranks' gradients are parts of the
+        leaf's along ``model``: first summed over them), then summed over
+        the ``data`` ranks (their blocks of a split leaf, the whole of a
+        leaf ``data`` does not split) and divided by their number."""
         t0 = time.perf_counter()  # lint: allow[wallclock] the in-pod part
-        if "model" in spec:
+        model = self._groups["model"] if self.sizes["model"] > 1 else None
+        if model_parts and model is not None:
+            if "model" in spec:
+                grad = model.reduce_scatter_sum(grad.movedim(-1, 0).contiguous()).movedim(0, -1)
+            else:
+                grad = model.all_gather_sum(grad)
+        elif "model" in spec:
             width = grad.shape[-1] // self.sizes["model"]
             grad = grad.narrow(-1, self.coords["model"] * width, width)
         n = self.sizes["data"]
@@ -154,25 +168,29 @@ class _Gather(torch.autograd.Function):
     rank's block of the pod's mean gradient."""
 
     @staticmethod
-    def forward(ctx, shard: torch.Tensor, inpod: InPodGroup, spec: Spec) -> torch.Tensor:
-        ctx.inpod, ctx.spec = inpod, spec
+    def forward(ctx, shard: torch.Tensor, inpod: InPodGroup, spec: Spec,
+                model_parts: bool) -> torch.Tensor:
+        ctx.inpod, ctx.spec, ctx.model_parts = inpod, spec, model_parts
         full = inpod.gather(shard, spec)
         return full.view_as(full) if full is shard else full
 
     @staticmethod
     def backward(ctx, grad: torch.Tensor):
-        return ctx.inpod.reduce_scatter_mean(grad, ctx.spec), None, None
+        return ctx.inpod.reduce_scatter_mean(grad, ctx.spec, ctx.model_parts), None, None, None
 
 
-def gather_tree(inpod: InPodGroup, specs: Mapping[str, Spec], prefix: str, tree: Any) -> Any:
+def gather_tree(inpod: InPodGroup, specs: Mapping[str, Spec], prefix: str, tree: Any,
+                model_parts: frozenset[str] = frozenset()) -> Any:
     """The full leaves of the subtree ``tree`` at ``prefix`` of a sharded
     parameter tree (``specs`` by leaf key), differentiable: the gradient
     of each reaches its block as :meth:`InPodGroup.reduce_scatter_mean`
-    gives it.  A leaf that no in-pod rank splits or averages is itself."""
+    gives it, summed over ``model`` first for the keys in
+    ``model_parts`` (the leaves used inside a ``model``-parallel region).
+    A leaf that no in-pod rank splits, averages or sums is itself."""
     def one(key: str, shard: torch.Tensor) -> torch.Tensor:
-        spec = specs[key]
-        if inpod.sizes["data"] == 1 and not any(spec):
+        spec, parts = specs[key], key in model_parts and inpod.sizes["model"] > 1
+        if inpod.sizes["data"] == 1 and not any(spec) and not parts:
             return shard
-        return _Gather.apply(shard, inpod, spec)
+        return _Gather.apply(shard, inpod, spec, parts)
 
     return map_paths(tree, one, prefix)

@@ -6,8 +6,12 @@ one process a rank, the ranks at their coordinates in row-major order over
 the axes, as the reference's mesh orders its devices.  Under ``torchrun``
 the process group comes from the environment; :func:`run_local_ranks`
 starts the ranks of one host itself, over a ``FileStore``, for the tests
-and ``chip_smoke.py``.  The group is gloo: its messages are host tensors,
-which every rank stages to and from its device (``dist.collectives.PodGroup``),
+and ``chip_smoke.py``.  Every rank must issue the same collectives in the
+same order (a mismatch would leave gloo waiting): each collective fails
+the run after the group's timeout (:data:`COLLECTIVE_TIMEOUT_S` under
+``torchrun``, the ranks' own under :func:`run_local_ranks`) instead of
+hanging it.  The group is gloo: its messages are host tensors, which
+every rank stages to and from its device (``dist.collectives.PodGroup``),
 so several ranks can share one card.  NCCL refuses two ranks on one card,
 and ``DTensor`` on a gloo mesh holds no card tensors, so each rank keeps
 explicit local shards (``dist.inpod``).
@@ -33,9 +37,11 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from ..device import resolve_device
 
-__all__ = ["AXES", "Mesh", "check_mesh_shape", "make_mesh", "run_local_ranks"]
+__all__ = ["AXES", "COLLECTIVE_TIMEOUT_S", "Mesh", "check_mesh_shape", "make_mesh",
+           "run_local_ranks"]
 
 AXES = ("pod", "data", "model")
+COLLECTIVE_TIMEOUT_S = 600
 
 
 def check_mesh_shape(shape: tuple[int, ...], world_size: int,
@@ -82,7 +88,7 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...] = AXES,
     over host buffers.  Raises on a shape :func:`check_mesh_shape` refuses."""
     device = resolve_device(device)
     if not dist.is_initialized():
-        dist.init_process_group("gloo")
+        dist.init_process_group("gloo", timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
     if dist.get_backend() != "gloo":
         raise ValueError(f"the pod exchange runs over gloo, the process group is "
                          f"{dist.get_backend()}")

@@ -16,9 +16,9 @@ P,D,M`` runs one process a rank (``torchrun`` sets the world, of P x D x M
 ranks): each keeps its blocks of the parameters, of AdamW's state and of
 the residuals (``train.train_step``), the gradients synchronised across the
 pods by ``--sync`` (flat / hier / geococo, ``--density`` for geococo's
-top-k).  A mixture of experts with ``model`` above 1 is refused
-(expert-parallel compute, 6b-ii-b), as are ``--control`` and
-``--control-noise`` (the trainer slice, 6c).  With ``--ckpt-dir`` the run
+top-k); with ``model`` above 1 the attention heads and an MoE's experts
+are split over ``model``.  ``--control`` and ``--control-noise`` are
+refused (the trainer slice, 6c).  With ``--ckpt-dir`` the run
 resumes from the latest complete checkpoint there, as the reference
 trainer's ``maybe_resume`` does, and saves every ``--ckpt-every`` steps.
 Only rank 0 prints.
@@ -46,7 +46,7 @@ from ..dist.sharding import Spec, local_shard
 from ..launch.mesh import check_mesh_shape, make_mesh
 from ..models.model import cast_params_, init_params
 from ..optim.adamw import AdamWConfig, adamw_init
-from ..train.train_step import TrainConfig, build_train_step, check_mesh_arch
+from ..train.train_step import TrainConfig, build_train_step
 from ..tree import map_paths
 
 __all__ = ["StatePlacement", "train", "main"]
@@ -266,8 +266,6 @@ def main(argv: list[str] | None = None) -> list[dict[str, float]]:
         shape = None
         if args.mesh is not None:
             shape = tuple(int(x) for x in args.mesh.split(","))
-            if len(shape) == 3:
-                check_mesh_arch(cfg, dict(zip(("pod", "data", "model"), shape)))
             world = (dist.get_world_size() if dist.is_initialized()
                      else int(os.environ.get("WORLD_SIZE", "1")))
             check_mesh_shape(shape, world)

@@ -20,6 +20,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist import context as dist_context
+
 Params = dict
 
 __all__ = [
@@ -33,6 +35,8 @@ __all__ = [
     "flash_attention",
     "banded_attention",
     "attention_any",
+    "pad_heads_for_tp",
+    "tp_heads",
     "gqa_init",
     "gqa_apply",
     "gqa_init_cache",
@@ -291,6 +295,89 @@ def attention_any(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
+# attention heads split over the model axis
+# ---------------------------------------------------------------------------
+
+
+def pad_heads_for_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dm: int
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, int]:
+    """The reference's padded-TP head layout for ``dm`` ranks along
+    ``model``, exact for any head count: kv heads are repeated ``rep =
+    lcm(KV, dm) / KV`` times; each group's q heads are zero-padded from
+    ``gq = H / KV`` to ``gq_pad = rep * ceil(gq / rep)``.  Group-major
+    order is kept, so padded q slot ``r * gq_pad + o`` attends padded kv
+    head ``r * rep + o // (gq_pad / rep)``, a copy of real kv head ``r``.
+    Returns (q_pad, k_rep, v_rep, gq_pad); both padded head counts are
+    multiples of ``dm``."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    rep = math.lcm(kv, dm) // kv
+    gq_pad = rep * (-(-g // rep))
+    q_pad = F.pad(q.reshape(b, s, kv, g, d), (0, 0, 0, gq_pad - g)).reshape(b, s, kv * gq_pad, d)
+    return (q_pad, k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2), gq_pad)
+
+
+def tp_heads(n_heads: int, n_kv: int, dm: int, coord: int) -> tuple[list[int], list[int]]:
+    """Rank ``coord`` of ``dm`` along ``model``: its block of the
+    :func:`pad_heads_for_tp` layout, as the real q head in each of its q
+    slots (-1 for a pad) and the real kv head in each of its kv slots.
+    Without padding (``n_heads`` and ``n_kv`` multiples of ``dm``) that is
+    the ``coord``-th contiguous block of each."""
+    q = torch.arange(1, n_heads + 1, dtype=torch.float64).view(1, 1, n_heads, 1)
+    kv = torch.arange(n_kv, dtype=torch.float64).view(1, 1, n_kv, 1)
+    q_pad, kv_rep, _, _ = pad_heads_for_tp(q, kv, kv, dm)
+    nq, nk = q_pad.shape[2] // dm, kv_rep.shape[2] // dm
+    return ([int(h) - 1 for h in q_pad[0, 0, coord * nq:(coord + 1) * nq, 0]],
+            [int(h) for h in kv_rep[0, 0, coord * nk:(coord + 1) * nk, 0]])
+
+
+def _head_slots(p: Params, x: torch.Tensor, heads: list[int], head_dim: int) -> torch.Tensor:
+    """``x``'s projection by the dense layer ``p`` (head-major outputs) for
+    the heads ``heads`` only, (B, S, len(heads), head_dim): a pad (-1)
+    projects to zeros."""
+    d_in = p["w"].shape[0]
+    w = p["w"].view(d_in, -1, head_dim)
+    n = w.shape[1]
+    idx = torch.tensor([h if h >= 0 else n for h in heads], device=w.device)
+    sub = {"w": torch.cat([w, w.new_zeros(d_in, 1, head_dim)], dim=1)[:, idx].reshape(d_in, -1)}
+    if "b" in p:
+        b = p["b"].view(n, head_dim)
+        sub["b"] = torch.cat([b, b.new_zeros(1, head_dim)])[idx].reshape(-1)
+    return dense_apply(sub, x).reshape(*x.shape[:-1], len(heads), head_dim)
+
+
+def _attend_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_heads: list[int], *,
+               causal: bool, window: int = 0) -> torch.Tensor:
+    """Attention over one rank's block of the padded-TP layout (``q`` its q
+    slots, ``k`` and ``v`` its kv slots, ``q_heads`` as :func:`tp_heads`
+    gives them): the outputs of its real q heads, (B, S, n_real, D) in
+    slot order, the pads' sliced away."""
+    out = attention_any(q, k, v, causal=causal, window=window)
+    return out[:, :, [i for i, h in enumerate(q_heads) if h >= 0]]
+
+
+def _gqa_tp(p: Params, x: torch.Tensor, ctx, *, n_heads: int, n_kv: int, head_dim: int,
+            causal: bool, window: int, rope_theta: float) -> torch.Tensor:
+    """``gqa_apply``'s training forward in a ``model``-parallel region:
+    this rank's q heads (:func:`tp_heads`) with the kv heads they read,
+    its rows of ``wo``, and the sum of the ranks' parts over ``model``."""
+    b, s, _ = x.shape
+    q_heads, kv_heads = tp_heads(n_heads, n_kv, ctx.model_size, ctx.model_coord)
+    xr = ctx.enter(x)
+    q = _head_slots(p["wq"], xr, q_heads, head_dim)
+    k = _head_slots(p["wk"], xr, kv_heads, head_dim)
+    v = _head_slots(p["wv"], xr, kv_heads, head_dim)
+    pos = torch.arange(s, device=x.device)
+    q = apply_rope(q, pos, rope_theta)
+    k = apply_rope(k, pos, rope_theta)
+    out = _attend_tp(q, k, v, q_heads, causal=causal, window=window).to(x.dtype)
+    rows = p["wo"]["w"].view(n_heads, head_dim, -1)[[h for h in q_heads if h >= 0]]
+    y = out.reshape(b, s, -1) @ rows.reshape(out.shape[2] * head_dim, -1).to(x.dtype)
+    return ctx.exit(y.to(dist_context.wide(y.dtype))).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
 # GQA attention block (params + apply), with KV cache
 # ---------------------------------------------------------------------------
 
@@ -323,7 +410,17 @@ def gqa_apply(
     linear buffer, or as a ring of ``window`` entries when the cache is that
     long.  The ring refuses a multi-token write that would evict a key an
     earlier query of the same write still needs: the JAX package computes
-    that case wrongly (ROADMAP, fault 5)."""
+    that case wrongly (ROADMAP, fault 5).
+
+    Without a cache, under a distribution context with ``model`` above 1
+    (``dist.context``), the heads are split over ``model`` as the
+    reference pins them there: each rank computes its block of
+    :func:`pad_heads_for_tp`'s layout and its rows of ``wo``, and the
+    ranks' parts are summed over ``model`` in f32."""
+    ctx = dist_context.current()
+    if cache is None and ctx is not None and ctx.model_size > 1:
+        return _gqa_tp(p, x, ctx, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, causal=causal,
+                       window=window, rope_theta=rope_theta), None
     b, s, _ = x.shape
     q = dense_apply(p["wq"], x).reshape(b, s, n_heads, head_dim)
     k = dense_apply(p["wk"], x).reshape(b, s, n_kv, head_dim)

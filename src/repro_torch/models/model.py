@@ -13,6 +13,8 @@ Public API:
     cast_params_(params, dtype)                       -> params, cast in place
     param_dtypes(params)                              -> dtypes cast_params_ sets
     param_count(cfg)                                  -> int
+    region_leaves(cfg)                                -> keys of the leaves
+                                                         split over ``model``
 
 The port runs the mixers ``rwkv``, ``rglru``, ``attn`` and ``attn_local``
 and the ffns ``rwkv_cmix``, ``dense``, ``moe`` and ``none``; any other block,
@@ -29,6 +31,7 @@ import torch.utils.checkpoint
 
 from ..configs.base import Block, ModelConfig
 from ..device import resolve_device
+from ..tree import leaf_paths
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
@@ -50,7 +53,7 @@ from .layers import (
 
 __all__ = [
     "init_params", "forward", "init_cache", "cast_params_", "param_dtypes",
-    "param_count",
+    "param_count", "region_leaves",
 ]
 
 _MIXERS = ("rwkv", "rglru", "attn", "attn_local")
@@ -290,3 +293,23 @@ def param_count(cfg: ModelConfig) -> int:
         return tree.numel()
 
     return count(init_params(cfg, None, "meta"))
+
+
+def region_leaves(cfg: ModelConfig) -> frozenset[str]:
+    """The keys (``tree.leaf_paths``) of the leaves that ``forward`` reads
+    inside a ``model``-parallel region under a distribution context with
+    ``model`` above 1 (``dist.context``): every attention block's
+    projections and every MoE block's router and experts, not its shared
+    experts.  Each ``model`` rank's gradient of such a leaf is a part of
+    the leaf's."""
+    blocks = cfg.block_list()
+    keys = set()
+    for key, _ in leaf_paths(init_params(cfg, None, "meta")):
+        parts = key.split("/")
+        if parts[0] != "layers":
+            continue
+        blk = blocks[int(parts[1])]
+        if ((parts[2] == "mixer" and blk.mixer in ("attn", "attn_local"))
+                or (parts[2] == "ffn" and blk.ffn == "moe" and parts[3] != "shared")):
+            keys.add(key)
+    return frozenset(keys)

@@ -10,7 +10,13 @@ whole).  A step computes the loss on the rank's rows of the global batch
 splits it; ranks along ``model`` share rows), gathering each block's
 parameters just before it runs and again in remat's recompute
 (``dist.inpod``); the backward turns each gradient into this rank's block
-of the pod's mean gradient as soon as autograd completes it.  The blocks,
+of the pod's mean gradient as soon as autograd completes it.  The forward
+and backward run under a distribution context (``dist.context``), as the
+reference's ``build_train_step`` enters one: with ``model`` above 1 the
+attention heads and the experts are split over ``model`` (each rank
+computes its part, summed over ``model``); an MoE routes its pod's rows,
+or with ``model`` above 1 each ``data`` rank's own, as the reference
+does.  The blocks,
 grouped as the reference stacks them (``dist.grouping``), are exchanged
 across the pods by ``dist.collectives.sync_gradients`` under
 ``TrainConfig.sync``, and AdamW updates the blocks, its clip from the norm
@@ -30,19 +36,17 @@ import torch.distributed as dist
 from ..configs.base import ModelConfig
 from ..device import resolve_device, synchronize
 from ..dist.collectives import PodGroup, SyncConfig, WireStats, sync_gradients
+from ..dist.context import DistContext, distribution
 from ..dist.grouping import group_like_reference, leaf_specs, ungroup
 from ..dist.inpod import InPodGroup, gather_tree
-from ..dist.sharding import batch_rows
+from ..dist.sharding import batch_rows, fit_batch_axes
 from ..models.layers import Params
-from ..models.model import forward
+from ..models.model import forward, region_leaves
 from ..optim.adamw import AdamWConfig, adamw_update
 from ..tree import leaves
 
-__all__ = ["TrainConfig", "loss_fn", "grads_and_loss", "check_mesh_arch", "SyncGrads",
-           "build_train_step", "build_serve_step"]
-
-# what the port leaves to a later slice on a mesh, by the slice that brings it
-_EP_SLICE = "6b-ii-b: tensor- and expert-parallel compute"
+__all__ = ["TrainConfig", "loss_fn", "grads_and_loss", "SyncGrads", "build_train_step",
+           "build_serve_step"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,17 +119,6 @@ def _differ(sums: torch.Tensor, group: dist.ProcessGroup) -> list[int]:
     return [r for r, s in enumerate(every) if not torch.equal(s, sums)]
 
 
-def check_mesh_arch(cfg: ModelConfig, mesh_shape: dict[str, int]) -> None:
-    """Raise ``ValueError`` where ``cfg`` on a mesh of ``mesh_shape`` needs
-    compute the port has not yet: a mixture of experts with ``model`` above
-    1, where the reference runs its expert-parallel dispatch, whose
-    capacity comes from each device's tokens."""
-    if cfg.moe is not None and mesh_shape.get("model", 1) > 1:
-        raise ValueError(f"{cfg.name} on a mesh with model = {mesh_shape['model']}: the "
-                         f"reference dispatches its experts in parallel over model, which is "
-                         f"not ported yet; it arrives with {_EP_SLICE}")
-
-
 class SyncGrads:
     """``grads(params, batch, residuals=None) -> (grads, loss, parts)``:
     the part of the step on a mesh before AdamW.  ``params`` holds this
@@ -133,36 +126,54 @@ class SyncGrads:
     ``grads`` are this rank's blocks of the synced gradient (in
     ``tree.leaves`` order), ``loss`` this rank's, ``parts`` the host
     seconds and counts of the parts (``compute_s``, ``inpod_s``,
-    ``inpod_host_s``, ``exchange_s``, ...; see ``build_train_step``).
-    ``residuals`` are replaced in place.  ``pods`` and ``inpod`` are the
-    rank's groups, ``specs`` every port leaf's spec by key."""
+    ``inpod_host_s``, ``tp_s``, ``tp_bytes``, ``exchange_s``, ...; see
+    ``build_train_step``).  ``residuals`` are replaced in place.  ``pods``
+    and ``inpod`` are the rank's groups, ``ctx`` its distribution context,
+    ``specs`` every port leaf's spec by key."""
 
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, device: str | torch.device | None,
                  mesh):
-        check_mesh_arch(cfg, mesh.shape)
         self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
         self.device = resolve_device(device)
         self.pods = PodGroup(mesh.get_group("pod"))
         self.inpod = InPodGroup(mesh)
+        self.ctx = DistContext.from_mesh(mesh)
         self.specs = leaf_specs(cfg, mesh.shape, tcfg.sync.strategy)
+        self.model_parts = region_leaves(cfg) if mesh.shape["model"] > 1 else frozenset()
 
     def _gather(self, key: str, sub: Params) -> Params:
-        return gather_tree(self.inpod, self.specs, key, sub)
+        return gather_tree(self.inpod, self.specs, key, sub, self.model_parts)
+
+    def local(self, params: Params, batch: dict[str, torch.Tensor]
+              ) -> tuple[list[torch.Tensor], torch.Tensor]:
+        """This rank's blocks of its pod's mean gradient, before the
+        exchange across the pods, and its loss, from its rows of the global
+        ``batch``; the counts of ``inpod`` and ``ctx`` restart."""
+        cfg, mesh, ctx = self.cfg, self.mesh, self.ctx
+        rows = next(iter(batch.values())).shape[0]
+        ctx.splits_rows = "data" in fit_batch_axes(mesh.shape, rows)
+        if (cfg.moe is not None and ctx.model_size > 1 and ctx.data_size > 1
+                and not ctx.splits_rows):
+            raise ValueError(f"{cfg.name} on {mesh.shape}: a global batch of {rows} rows does "
+                             f"not split over data, where the reference's expert parallelism "
+                             f"splits a row's tokens over data; the port splits rows")
+        own = batch_rows(mesh.shape, mesh.coords, rows)
+        batch = {k: v[own].to(self.device) for k, v in batch.items()}
+        self.inpod.reset()
+        ctx.reset()
+        with distribution(ctx):
+            return grads_and_loss(cfg, self.tcfg, params, batch, self._gather)
 
     def __call__(self, params: Params, batch: dict[str, torch.Tensor],
                  residuals: dict | None = None) -> tuple[list[torch.Tensor], torch.Tensor, dict]:
         cfg, tcfg, pods, inpod, device = self.cfg, self.tcfg, self.pods, self.inpod, self.device
         if tcfg.sync.needs_residuals and pods.size > 1 and residuals is None:
             raise ValueError(f"{tcfg.sync.strategy} carries residuals: pass them to the step")
-        rows = next(iter(batch.values())).shape[0]
-        own = batch_rows(self.mesh.shape, self.mesh.coords, rows)
-        batch = {k: v[own].to(device) for k, v in batch.items()}
         clock = time.perf_counter  # lint: allow[wallclock] the step's parts
-        inpod.reset()
         pods.stats = WireStats()
         synchronize(device)
         t0 = clock()
-        local, loss = grads_and_loss(cfg, tcfg, params, batch, self._gather)
+        local, loss = self.local(params, batch)
         synchronize(device)
         t1 = clock()
         inpod_s, inpod_host_s = inpod.wall_s, inpod.stats.host_s
@@ -175,12 +186,16 @@ class SyncGrads:
         out = ungroup(cfg, synced)
         del synced
         synchronize(device)
-        stats = pods.stats
-        return out, loss, dict(
+        stats, ctx = pods.stats, self.ctx
+        parts = dict(
             compute_s=t1 - t0, inpod_s=inpod_s, inpod_host_s=inpod_host_s,
+            tp_s=ctx.wall_s, tp_bytes=ctx.stats.bytes_sent,
             exchange_s=clock() - t1, exchange_host_s=stats.host_s,
             dense_values=float(stats.dense_values), sparse_values=float(stats.sparse_values),
             nonzero_sent=float(stats.nonzero_sent), bytes_sent=stats.bytes_sent)
+        if cfg.moe is not None:
+            parts.update(moe_assigned=float(ctx.moe_assigned), moe_dropped=float(ctx.moe_dropped))
+        return out, loss, parts
 
 
 def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
@@ -204,12 +219,17 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     host seconds of the step's parts, each ending in a device synchronise
     (``compute_s``: forward and backward, of which ``inpod_s`` the in-pod
     gathers and reduce-scatters, of which ``inpod_host_s`` staging and
-    gloo; ``exchange_s``: grouping, the pod exchange and ungrouping, of
+    gloo, and ``tp_s`` the sums of the ``model``-parallel regions and the
+    MoE's count prefix (``dist.context``); ``exchange_s``: grouping, the
+    pod exchange and ungrouping, of
     which ``exchange_host_s`` staging and gloo; ``adamw_s``, with the
-    norm's in-pod sum), the bytes handed to gloo in-pod (``inpod_bytes``)
-    and the pod wire's counts (``dense_values``, ``sparse_values``,
-    ``nonzero_sent``, ``bytes_sent``: ``dist.collectives.WireStats``),
-    each a float."""
+    norm's in-pod sum), the bytes handed to gloo in-pod (``inpod_bytes``,
+    of the gathers and reduce-scatters; ``tp_bytes``, of the regions'
+    sums and the count prefix) and the pod wire's counts
+    (``dense_values``, ``sparse_values``, ``nonzero_sent``,
+    ``bytes_sent``: ``dist.collectives.WireStats``), each a float; for an
+    MoE also the assignments it routed and dropped over the step's calls
+    (``moe_assigned``, ``moe_dropped``; remat's recompute routes again)."""
     device = resolve_device(device)
 
     if mesh is None or mesh.size <= 1:

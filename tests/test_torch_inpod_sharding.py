@@ -26,9 +26,13 @@ set (the inputs are random normal, so no two magnitudes in a chunk tie);
 the wire values counted equal to ``estimate_sync_bytes`` over the rank's
 blocks exactly; the norm rtol 1e-6 and the parameters after AdamW rtol =
 atol = 1e-6 (``test_torch_train_step.py``'s tolerance with the clip: the
-norm sums in another order).
+norm sums in another order).  On each mesh granite-moe-3b-a800m's smoke
+config at capacity factor 1.25 also steps, its synced gradient against the
+port's own one process with a microbatch per routing group (within 1e-5),
+and ``DistContext``'s expert layout is held against the reference's.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -41,17 +45,20 @@ import pytest
 import torch
 
 from repro_torch.configs.registry import get_smoke_config
+from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.dist import collectives as col
+from repro_torch.dist.context import DistContext
 from repro_torch.dist.grouping import (group_like_reference, grouped_specs, leaf_specs, ungroup,
                                        zero_residuals)
 from repro_torch.dist.inpod import InPodGroup
 from repro_torch.dist.sharding import (batch_rows, fit_batch_axes, local_shape, local_shard,
                                        shard_factor, unshard)
 from repro_torch.launch.mesh import AXES, check_mesh_shape, make_mesh, run_local_ranks
+from repro_torch.launch.train import StatePlacement
 from repro_torch.models.model import init_params
 from repro_torch.optim import adamw
-from repro_torch.train.train_step import TrainConfig, build_train_step, check_mesh_arch
-from repro_torch.tree import leaves
+from repro_torch.train.train_step import SyncGrads, TrainConfig, grads_and_loss
+from repro_torch.tree import leaf_paths, leaves
 
 REPO = Path(__file__).resolve().parents[1]
 RANK_TIMEOUT = 120
@@ -257,13 +264,7 @@ def port_rank(rank: int, shape: tuple) -> dict:
                                        gnorm=norm)
     out["adamw"] = {k: v.numpy() for k, v in p_blocks.items()}
     out["adamw_norm"] = float(metrics["grad_norm"])
-    # an MoE model with model > 1 is refused before any collective
-    moe = get_smoke_config("granite-moe-3b-a800m")
-    try:
-        build_train_step(moe, TrainConfig(), "cpu", mesh)
-        out["moe"] = None
-    except ValueError as err:
-        out["moe"] = str(err)
+    out["moe"] = moe_against_one_process(mesh)
     # the in-pod collectives, each against its definition
     base = torch.arange(24, dtype=torch.float32).reshape(4, 6)
     for spec in (("data", "model"), ("data", None), (None, "model")):
@@ -273,6 +274,32 @@ def port_rank(rank: int, shape: tuple) -> dict:
     out["reduced"] = inpod.reduce_scatter_mean(x, ("data", "model")).numpy()
     out["reduced_rep"] = inpod.reduce_scatter_mean(x, ()).numpy()
     out["inpod_bytes"] = inpod.stats.bytes_sent
+    return out
+
+
+def moe_against_one_process(mesh) -> dict[str, float]:
+    """granite-moe-3b-a800m's smoke config at capacity factor 1.25, one hier
+    step's synced gradient on ``mesh`` against one process's over the
+    global batch with as many microbatches as the mesh has routing groups
+    (each pod's rows, with ``model`` above 1 each ``data`` rank's):
+    per leaf, the largest difference of this rank's block over the
+    largest value of the one-process gradient's block."""
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=1.25))
+    tcfg = TrainConfig(sync=col.SyncConfig("hier"), compute_dtype=torch.float32)
+    whole = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=16, global_batch=4,
+                                   seed=0)).batch(0)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+    blocks = StatePlacement(cfg, tcfg, torch.device("cpu"), mesh).place(whole, "params")
+    grads, _, _ = SyncGrads(cfg, tcfg, "cpu", mesh)(blocks, batch)
+    groups = mesh.shape["pod"] * (mesh.shape["data"] if mesh.shape["model"] > 1 else 1)
+    want, _ = grads_and_loss(cfg, dataclasses.replace(tcfg, microbatches=groups), whole, batch)
+    specs = leaf_specs(cfg, mesh.shape, "hier")
+    out = {}
+    for (key, _), got, w in zip(leaf_paths(whole), grads, want, strict=True):
+        w = local_shard(w, specs[key], mesh.coords, mesh.shape)
+        out[key] = float((got - w).abs().max() / w.abs().max().clamp_min(1e-30))
     return out
 
 
@@ -421,21 +448,32 @@ def test_in_pod_collectives_follow_their_definitions(shape, port):
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=mesh_key)
-def test_moe_with_model_above_1_is_refused_naming_its_slice(shape, port):
+def test_moe_step_on_a_sharded_mesh_agrees_with_one_process(shape, port):
+    """An MoE steps on every mesh, ``model`` above 1 too: its synced
+    gradient is one process's with a microbatch per routing group, within
+    1e-5 of each block's largest value (f32, sums in other orders)."""
     for got in port[mesh_key(shape)]:
-        if shape[2] > 1:
-            assert "6b-ii-b" in got["moe"] and "not ported yet" in got["moe"]
-        else:
-            assert got["moe"] is None
+        worst = max(got["moe"], key=got["moe"].get)
+        assert got["moe"][worst] <= 1e-5, (worst, got["moe"][worst])
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 2), (2, 1, 2), (2, 2, 2), (4, 1, 4)], ids=mesh_key)
-def test_check_mesh_arch_refuses_moe_over_model(shape):
+def test_expert_layout_is_the_references(shape):
+    """``DistContext.experts`` on every ``model`` coordinate against the
+    reference's expert-parallel layout (``repro.models.moe``,
+    ``_moe_apply_manual_ep``): ``e_pad``, ``e_local`` and the offsets
+    ``arange(dm) * e_local``, for the smoke config's 8 experts, the full
+    config's 40 and counts that leave padded experts."""
     sizes = dict(zip(AXES, shape))
-    with pytest.raises(ValueError, match="6b-ii-b"):
-        check_mesh_arch(get_smoke_config("granite-moe-3b-a800m"), sizes)
-    check_mesh_arch(get_smoke_config("rwkv6-7b"), sizes)
-    check_mesh_arch(get_smoke_config("granite-moe-3b-a800m"), dict(sizes, model=1))
+    dm = shape[2]
+    for e in (8, 40, 3, 7):
+        e_pad = -(-e // dm) * dm
+        e_local = e_pad // dm
+        offsets = np.arange(dm, dtype=np.int32) * e_local
+        for m in range(dm):
+            ctx = DistContext(sizes, {"pod": 0, "data": 0, "model": m})
+            assert ctx.experts(e) == (e_pad, e_local, int(offsets[m]))
+        assert e_pad >= e and e_pad - e < dm
 
 
 @pytest.mark.parametrize("shape,world,error", [((2, 2, 1), 4, None), ((2, 1, 2), 4, None),

@@ -1,7 +1,8 @@
 """Training on meshes that shard within a pod, on the CPU: the port's
 ``train()`` on (2, 2, 1), (2, 1, 2) and (2, 2, 2) meshes of gloo ranks
-against the reference's ``build_train_step``, checkpoints moved between
-meshes, and the CLI.
+against the reference's ``build_train_step``, and on (1, 2, 1), (1, 1, 2),
+(1, 2, 2) and (1, 1, 3), where it splits attention heads and experts over
+``model``; checkpoints moved between meshes, and the CLI.
 
 The reference runs in a child process with 8 forced host devices, its
 meshes built with ``Auto`` axes (fault 1), and writes 3 steps of its
@@ -10,11 +11,18 @@ hier on (2, 2, 1) and geococo at density 1.0 on (2, 1, 2);
 minitron-8b's under hier on (2, 1, 2); granite-moe-3b-a800m's under hier
 on (2, 2, 1) (``model`` 1: the reference's dense dispatch, capacity factor
 8.0, which drops nothing at this size, so the rows a device sees do not
-decide the drops).  On one controller the reference's gradient is the
+decide the drops); and with ``model`` above 1 or the published capacity
+factor, each on its own mesh: granite-moe-3b-a800m's at capacity factor
+1.25 on (1, 2, 1) (dense dispatch over the rows ``data`` splits: fault 10),
+(1, 1, 2), (1, 2, 2) (each ``data`` shard's experts see its tokens alone)
+and (1, 1, 3) (padded experts and q heads); minitron-8b's on (1, 1, 3)
+(padded heads); recurrentgemma-9b's on (1, 1, 2) (banded attention, one kv
+head).  On one controller the reference's gradient is the
 global batch's mean on every mesh and its pod exchange of these three
 strategies averages pod-identical values, so a strategy's trajectory is
-the same on every mesh up to float reassociation: each of the port's
-meshes is held against the reference's run of its strategy.  Not on
+the same on every mesh up to float reassociation, where the MoE drops
+nothing: each of the port's meshes is held against the reference's run of
+its strategy, or of its mesh where there is one.  Not on
 (2, 2, 2): there the reference's step computes another gradient on the
 CPU (fault 9, ``ROADMAP.md`` §3), which a test pins.
 
@@ -26,6 +34,7 @@ near its rounding noise may move the other way).  Checkpoints: bit for bit.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -46,6 +55,7 @@ from repro_torch.dist.sharding import local_shard
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.mesh import AXES, make_mesh, run_local_ranks
 from repro_torch.models.convert import params_from_jax
+from repro_torch.models.model import region_leaves
 from repro_torch.optim import adamw
 from repro_torch.train.train_step import TrainConfig
 from repro_torch.tree import leaf_paths
@@ -53,6 +63,9 @@ from repro_torch.tree import leaf_paths
 REPO = Path(__file__).resolve().parents[1]
 RANK_TIMEOUT = 120
 MESHES = [(2, 2, 1), (2, 1, 2), (2, 2, 2)]
+TP_MESHES = [(1, 2, 1), (1, 1, 2), (1, 2, 2), (1, 1, 3)]
+# granite at the published capacity factor: the drops depend on the rows routed together
+GRANITE_125 = "granite-moe-3b-a800m@1.25"
 STEPS, SEQ, BATCH = 3, 16, 4
 LR, WARMUP = 1e-3, 2
 STRATEGIES = {"flat": dict(strategy="flat"), "hier": dict(strategy="hier", ring_order=(1, 0)),
@@ -61,11 +74,16 @@ STRATEGIES = {"flat": dict(strategy="flat"), "hier": dict(strategy="hier", ring_
 REFERENCE_RUNS = [("rwkv6-7b", "flat", (2, 2, 1)), ("rwkv6-7b", "hier", (2, 2, 1)),
                   ("rwkv6-7b", "geococo-1.0", (2, 1, 2)), ("minitron-8b", "hier", (2, 1, 2)),
                   ("granite-moe-3b-a800m", "hier", (2, 2, 1))]
+# the runs whose result depends on the mesh, or that exercise the reference's
+# model-parallel paths: the port's run on that mesh is held against them
+TP_RUNS = ([(GRANITE_125, "hier", m) for m in TP_MESHES]
+           + [("minitron-8b", "hier", (1, 1, 3)), ("recurrentgemma-9b", "hier", (1, 1, 2))])
 # fault 9: the reference's step on a (2, 2, 2) mesh computes another gradient
 FAULT_9_RUN = ("rwkv6-7b", "hier", (2, 2, 2))
 # (arch, strategy, mesh) of the port: rwkv6 under each strategy on each mesh
 PORT_RUNS = ([("rwkv6-7b", s, m) for s in STRATEGIES for m in MESHES]
-             + [("minitron-8b", "hier", (2, 1, 2)), ("granite-moe-3b-a800m", "hier", (2, 2, 1))])
+             + [("minitron-8b", "hier", (2, 1, 2)), ("granite-moe-3b-a800m", "hier", (2, 2, 1))]
+             + TP_RUNS)
 TOL = dict(loss=1e-4, param=1e-5, flip_share=0.01)
 CKPT_SYNC = dict(strategy="geococo", density=0.25, chunk=256, min_leaf_size=100)
 
@@ -78,8 +96,28 @@ def opt_cfg():
     return dict(lr=LR, warmup_steps=WARMUP, total_steps=STEPS)
 
 
+def smoke(arch: str, get=get_smoke_config):
+    """The smoke config of ``arch``, ``name@cf`` with its MoE's capacity
+    factor set to ``cf``; ``get`` the package's ``get_smoke_config``."""
+    name, _, cf = arch.partition("@")
+    cfg = get(name)
+    if cf:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=float(cf)))
+    return cfg
+
+
+def run_key(arch: str, strategy: str, shape) -> str:
+    """Where the reference's run that a port run on ``shape`` is held
+    against is kept: the run on that mesh if the reference made one, else
+    its run of the strategy."""
+    own = (arch, strategy, tuple(shape))
+    if own in TP_RUNS:
+        return f"{arch}/{strategy}/{mesh_key(shape)}"
+    return f"{arch}/{strategy}"
+
+
 def global_batches(arch: str):
-    data = SyntheticLM(DataConfig(vocab_size=get_smoke_config(arch).vocab_size, seq_len=SEQ,
+    data = SyntheticLM(DataConfig(vocab_size=smoke(arch).vocab_size, seq_len=SEQ,
                                   global_batch=BATCH, seed=0))
     return [data.batch(i) for i in range(STEPS)]
 
@@ -107,8 +145,8 @@ def reference_main(out_dir: str) -> None:
 
     out = {}
     opt = jadamw.AdamWConfig(**opt_cfg())
-    for arch, strategy, shape in REFERENCE_RUNS + [FAULT_9_RUN]:
-        jcfg = jax_smoke(arch)
+    for arch, strategy, shape in REFERENCE_RUNS + [FAULT_9_RUN] + TP_RUNS:
+        jcfg = smoke(arch, jax_smoke)
         params0 = jax.tree.map(np.asarray, jax_model.init_params(jcfg, jax.random.PRNGKey(0)))
         out.update({f"{arch}/init/{k}": v for k, v in flat(params0).items()})
         mesh = jax.make_mesh(shape, AXES, axis_types=(AxisType.Auto,) * 3,
@@ -132,9 +170,10 @@ def reference_main(out_dir: str) -> None:
         if (arch, strategy, shape) == FAULT_9_RUN:
             out["fault9/grad_norms"] = np.array(norms)
             continue
-        out[f"{arch}/{strategy}/losses"] = np.array(losses)
-        out[f"{arch}/{strategy}/grad_norms"] = np.array(norms)
-        out.update({f"{arch}/{strategy}/params/{k}": v for k, v in flat(p).items()})
+        key = run_key(arch, strategy, shape)
+        out[f"{key}/losses"] = np.array(losses)
+        out[f"{key}/grad_norms"] = np.array(norms)
+        out.update({f"{key}/params/{k}": v for k, v in flat(p).items()})
     np.savez(os.path.join(out_dir, "runs.npz"), **out)
 
 
@@ -165,7 +204,7 @@ def trajectory_rank(rank: int, shape: tuple, runs_path: str) -> dict:
     for arch, strategy, where in PORT_RUNS:
         if where != shape:
             continue
-        cfg = get_smoke_config(arch)
+        cfg = smoke(arch)
         tcfg = TrainConfig(sync=SyncConfig(**STRATEGIES[strategy]),
                            optim=adamw.AdamWConfig(**opt_cfg()), compute_dtype=torch.float32)
         placement = train_mod.StatePlacement(cfg, tcfg, torch.device("cpu"), mesh)
@@ -184,6 +223,7 @@ def trajectory_rank(rank: int, shape: tuple, runs_path: str) -> dict:
             "grad_norms": [float(m["grad_norm"]) for m in metrics],
             "pods_agree": [m["pods_agree"] for m in metrics],
             "inpod_bytes": [m["inpod_bytes"] for m in metrics],
+            "tp_bytes": [m["tp_bytes"] for m in metrics],
             "blocks": {k: v.detach().numpy() for k, v in leaf_paths(state["params"])}}
     return out
 
@@ -191,11 +231,11 @@ def trajectory_rank(rank: int, shape: tuple, runs_path: str) -> dict:
 @pytest.fixture(scope="module")
 def port(reference):
     return {mesh_key(s): run_local_ranks(trajectory_rank, math.prod(s), (s, reference),
-                                         timeout=RANK_TIMEOUT) for s in MESHES}
+                                         timeout=RANK_TIMEOUT) for s in MESHES + TP_MESHES}
 
 
 def check_blocks(arch, strategy, shape, got: dict, coords: dict, want_flat: dict):
-    cfg = get_smoke_config(arch)
+    cfg = smoke(arch)
     want = params_from_jax(cfg, want_flat, device="cpu")
     sizes = dict(zip(AXES, shape))
     bound = 2 * sum(float(adamw.cosine_lr(adamw.AdamWConfig(**opt_cfg()), torch.tensor(i)))
@@ -221,22 +261,29 @@ def check_blocks(arch, strategy, shape, got: dict, coords: dict, want_flat: dict
 def test_trajectory_matches_the_reference_train_step(arch, strategy, shape, port, reference):
     runs = dict(np.load(reference))
     ranks = port[mesh_key(shape)]
+    key = run_key(arch, strategy, shape)
     for got in ranks:
         mine = got[(arch, strategy)]
-        np.testing.assert_allclose(mine["losses"], runs[f"{arch}/{strategy}/losses"],
-                                   rtol=TOL["loss"])
+        np.testing.assert_allclose(mine["losses"], runs[f"{key}/losses"], rtol=TOL["loss"])
         assert mine["pods_agree"] == [1.0] * STEPS
         check_blocks(arch, strategy, shape, mine["blocks"], got["coords"],
-                     sub(runs, f"{arch}/{strategy}/params/"))
+                     sub(runs, f"{key}/params/"))
     # every rank reports the same mean loss; the ranks of a pod group hold the same blocks
     assert all(got[(arch, strategy)]["losses"] == ranks[0][(arch, strategy)]["losses"]
                for got in ranks)
     per_pod = math.prod(shape[1:])
-    for r in range(per_pod):
+    for r in range(per_pod if shape[0] > 1 else 0):
         a, b = ranks[r][(arch, strategy)]["blocks"], ranks[r + per_pod][(arch, strategy)]["blocks"]
         assert all(np.array_equal(a[k], b[k]) for k in a)
     inpod = ranks[0][(arch, strategy)]["inpod_bytes"]
     assert all(v > 0 for v in inpod) and len(set(inpod)) == 1
+    # the regions' sums (attention or experts, model above 1) and the MoE's
+    # count prefix (rows split over data) cross gloo
+    tp = ranks[0][(arch, strategy)]["tp_bytes"]
+    cfg = smoke(arch)
+    crossed = ((shape[2] > 1 and bool(region_leaves(cfg)))
+               or (cfg.moe is not None and shape[1] > 1))
+    assert all((v > 0) == crossed for v in tp) and len(set(tp)) == 1
 
 
 def test_the_reference_step_on_2_2_2_computes_another_gradient(port, reference):

@@ -20,6 +20,7 @@ Inputs are numpy arrays from a seed, handed to both sides.  Tolerances:
 
 import dataclasses
 import json
+import math
 import os
 
 import jax
@@ -38,6 +39,7 @@ from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs.registry import get_smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticLM, make_batch
 from repro_torch.launch import train as train_mod
+from repro_torch.launch.mesh import run_local_ranks
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import init_params
 from repro_torch.optim import adamw
@@ -285,14 +287,27 @@ def test_train_cli_on_the_cpu(capsys):
     assert "done: loss" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--arch", "granite-moe-3b-a800m", "--mesh", "2,1,2"],
-                                  ["--arch", "granite-moe-3b-a800m", "--mesh", "1,1,2"],
-                                  ["--control"], ["--control-noise", "0.2"]])
+@pytest.mark.parametrize("flag", [["--control"], ["--control-noise", "0.2"]])
 def test_train_cli_refuses_what_needs_a_later_slice(flag, capsys):
     with pytest.raises(SystemExit) as err:
         train_mod.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu", *flag])
     assert err.value.code == 2
     assert "not ported yet" in capsys.readouterr().err
+
+
+def moe_cli_rank(rank: int, argv: list) -> list[float]:
+    return [r["loss"] for r in train_mod.main(argv)]
+
+
+@pytest.mark.parametrize("mesh", ["1,1,2", "2,1,2"])
+def test_train_cli_trains_an_moe_split_over_model(mesh):
+    """granite-moe-3b-a800m's experts and heads split over ``model`` from
+    the command line: every rank reports the same finite losses."""
+    argv = ["--arch", "granite-moe-3b-a800m", "--smoke", "--device", "cpu", "--mesh", mesh,
+            "--steps", "2", "--seq-len", "8", "--global-batch", "2"]
+    ranks = run_local_ranks(moe_cli_rank, math.prod(map(int, mesh.split(","))), (argv,),
+                            timeout=120)
+    assert all(len(r) == 2 and np.all(np.isfinite(r)) and r == ranks[0] for r in ranks)
 
 
 def test_train_step_defaults_to_cuda():

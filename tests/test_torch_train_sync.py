@@ -357,8 +357,7 @@ def test_cli_trains_across_two_pods():
     assert printed[1] == ""
 
 
-@pytest.mark.parametrize("flag,named", [(["--arch", "granite-moe-3b-a800m", "--mesh", "2,2,2"],
-                                         "6b-ii-b: tensor- and expert-parallel compute"),
+@pytest.mark.parametrize("flag,named", [(["--control-noise", "0.2"], "6c"),
                                         (["--mesh", "2,1,1"], "the world has 1"),
                                         (["--control"], "6c"),
                                         (["--sync", "bogus"], "unknown sync strategy")])
