@@ -142,12 +142,32 @@ Phases, each of which fails the run (nonzero exit, no result line):
    rank: compute, the in-pod gathers and reduce-scatters (device and host
    parts), the model sums and count prefix (``tp_s``), AdamW, the bytes to
    gloo in-pod and of the model sums (``tp_bytes``), the drops; peak memory
-   a rank.
+   a rank;
+23. the trainer (``train.trainer.Trainer``) on four pods: four ranks
+   spawned on the card as a (4, 1, 1) mesh over gloo, rwkv6-7b at full
+   width and 1 of 32 layers on 1 x 4096 rows a rank of a 4 x 4096 global
+   batch, bf16 compute, remat, hier, under a ``ControlPlane`` over the
+   reference test's 4-node square for two rounds, then the square with its
+   (0, 1) and (2, 3) links spiked; 6 steps, an asynchronous checkpoint at
+   step 4 (after the ring change) into a temporary directory, a
+   ``FaultInjected`` on every rank before step 6, rolled back to step 4 and
+   replayed; the WKV6 counts read around ``run()``.  Gated: the
+   ``RelayOrderChanged`` orders (0, 1, 2, 3) then ``relay_ring_order`` of
+   the spiked square, (0, 2, 1, 3), and at least 2 step rebuilds; every
+   rank the same ring, event list and records before every step; the pods
+   agree after every step; the replayed step's loss and gradient norm
+   equal its first run's bit for bit, and the run ends at step 6; WKV6 2
+   forward and 1 backward a layer, step and rank, the replay included;
+   finite losses that fall.  Printed per step and rank: the ring the step
+   ran on, compute, the exchange (device and host), AdamW, the bytes to
+   gloo; the straggler trips (the reference's threshold 1.5 and sustain 3,
+   on the slowest rank's step time), the checkpoint's blocking part and
+   its writer thread's time; peak memory a rank.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13 and 15-22 each on an empty card after the phase
+released, and phases 11, 13 and 15-23 each on an empty card after the phase
 before.  Each phase prints its wall time.
 
 The line before the last lists the kernels as JSON; the last line is
@@ -298,6 +318,36 @@ INPOD_TIMEOUT = 900
 TP_MESH, TP_LAYERS, TP_BATCH, TP_STEPS = (1, 2, 2), 8, 2, 3
 TP_CAPACITY, TP_LOSS_TOL, TP_CHECK_DTYPE = 1.25, 1e-4, "float64"
 TP_TIMEOUT = 600
+# phase 23: the trainer on four pods.  A ring order can change only with
+# four pods or more (every 2- and 3-node ring is one canonical ring), so
+# four ranks share the card, which sets the depth: rwkv6-7b at full width
+# and 1 of its 32 layers (16 B a parameter of state, ~16 GB a rank), 1 x
+# TRAINER_SEQ rows a rank of a 4 x TRAINER_SEQ global batch, bf16, remat,
+# hier.  The
+# control plane sees the reference test's 4-node square for two rounds,
+# then the square with its (0, 1) and (2, 3) links spiked
+# (tests/test_control_plane.py:33-49): the ring is (0, 1, 2, 3) from step 2
+# and (0, 2, 1, 3) from step 5.  A checkpoint lands at step 4, after the
+# change; a FaultInjected on every rank before step 6 rolls back to it, so
+# step 5 replays under the ring of its first run.  AdamW at its defaults,
+# as in phases 19 and 21: a warm-up of 100 steps keeps the first steps'
+# learning rate small (with 6e-4 after 2 warm-up steps the loss rose from
+# 11.79 to 15.04 in 6 steps at this width).
+TRAINER_MESH, TRAINER_LAYERS, TRAINER_BATCH = (4, 1, 1), 1, 4
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_FAULT_AT = 6, 4, 5
+# the sequence is not cut: at 4096 a rank peaked at 17.54 to 18.61 GB, 74 GB
+# of the card's 80 for the four ranks, and at 2048 at the same: the peak is
+# the exchange's (state, gradient, the ring's held messages), not the
+# activations'
+TRAINER_SEQ = 4096
+TRAINER_TIMEOUT = 900
+SQUARE_MS = ((0.0, 10.0, 14.0, 10.0), (10.0, 0.0, 10.0, 14.0),
+             (14.0, 10.0, 0.0, 10.0), (10.0, 14.0, 10.0, 0.0))
+SPIKE_MS, SQUARE_ROUNDS = 100.0, 2
+# the records every rank holds alike (not its host times, nor its counts of
+# its own nonzero values)
+SHARED_RECORD = ("step", "loss", "grad_norm", "lr", "pods_agree", "dense_values",
+                 "sparse_values", "bytes_sent")
 
 
 def fail(msg: str) -> None:
@@ -2620,6 +2670,188 @@ def run_tp() -> None:
         fail(f"[22] {over[0]}: the synced gradient {errs[over[0]]:.3e} of its norm from the "
              f"yardstick's (> {limits[over[0]]:.3e})")
 
+def square_frames(rounds: int):
+    """The reference test's square for SQUARE_ROUNDS rounds, then spiked."""
+    import numpy as np
+
+    square = np.array(SQUARE_MS)
+    spiked = square.copy()
+    spiked[0, 1] = spiked[1, 0] = spiked[2, 3] = spiked[3, 2] = SPIKE_MS
+    return [square] * SQUARE_ROUNDS + [spiked] * (rounds - SQUARE_ROUNDS)
+
+
+def event_text(event) -> tuple:
+    """An event's type, round, reason and payload, comparable across ranks."""
+    plan = getattr(event, "plan", None)
+    return (type(event).__name__, event.round, event.reason, getattr(event, "order", None),
+            None if plan is None else (plan.groups, plan.aggregators))
+
+
+def trainer_rank(rank: int, cfg, device: str, seq: int, ckpt_dir: str) -> dict:
+    """Phase 23, in one of four spawned processes on the (4, 1, 1) mesh: a
+    ``Trainer`` of ``cfg`` (hier) under a ``ControlPlane`` over
+    ``square_frames``, a fault injected before step TRAINER_FAULT_AT + 1,
+    the WKV6 counts read around ``run()``.  Before every step (from the
+    fault injector) it notes the ring the step runs on, the events applied
+    so far and the straggler monitor.  Under deterministic algorithms, so
+    that a replayed step is its first run bit for bit."""
+    import torch
+
+    from repro_torch.control import ControlPlane, TraceView
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.collectives import SyncConfig
+    from repro_torch.kernels.rwkv6_wkv import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.train_step import TrainConfig
+    from repro_torch.train.trainer import FaultInjected, Trainer, TrainerConfig
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh, _ = make_mesh(TRAINER_MESH, device=dev)
+    plane = ControlPlane(TraceView(square_frames(TRAINER_STEPS + 2), loop=False),
+                         replan_sustain=2, degrade_sustain=2)
+    tcfg = TrainConfig(sync=SyncConfig("hier"))
+    run_cfg = TrainerConfig(steps=TRAINER_STEPS, ckpt_dir=ckpt_dir,
+                            ckpt_every=TRAINER_CKPT_EVERY, log_every=0)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=TRAINER_BATCH, seed=0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(cfg, mesh, tcfg, run_cfg, data, control=plane, device=dev)
+    seen, fired = [], []
+
+    def before_step(step: int) -> None:
+        seen.append({"step": step + 1, "ring": trainer.tcfg.sync.ring_order,
+                     "events": [event_text(e) for e in trainer.network_events],
+                     "rebuilds": trainer.sync_rebuilds, "trips": trainer.monitor.trips})
+        if step == TRAINER_FAULT_AT and not fired:
+            fired.append(step)
+            raise FaultInjected(f"injected before step {step + 1}")
+
+    hist, counts = counted({"wkv6": ops.wkv6, "wkv6_backward": ops.wkv6_backward},
+                           lambda: trainer.run(fault_injector=before_step))
+    out = {"history": hist, "launches": counts, "seen": seen, "fired": fired,
+           "step_idx": trainer.step_idx, "sync_rebuilds": trainer.sync_rebuilds,
+           "events": [event_text(e) for e in trainer.network_events],
+           "ring": trainer.tcfg.sync.ring_order, "saves": trainer.saves,
+           "trips": trainer.monitor.trips,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else None}
+    if rank == 0:
+        out["plane"] = (f"control plane: {plane.round} rounds, {plane.replan_count} replans, "
+                        f"relay order {plane.relay_order}, events {plane.event_counts()}, probe "
+                        f"traffic {plane.probe_bytes} B; step rebuilds {trainer.sync_rebuilds}")
+    return out
+
+
+def check_trainer(ranks: list, cfg, kernels: bool) -> None:
+    """Phase 23's gates across the ranks (``kernels``: the WKV6 wrappers
+    launch their kernels, so their counts are 2 and 1 a layer and step)."""
+    from repro_torch.control import relay_ring_order
+
+    import numpy as np
+
+    first = ranks[0]
+    hist = first["history"]
+    spiked = np.array(square_frames(SQUARE_ROUNDS + 1)[-1])
+    orders = [e[3] for e in first["events"] if e[0] == "RelayOrderChanged"]
+    want_orders = [(0, 1, 2, 3), relay_ring_order(spiked)]
+    if orders != want_orders or want_orders[1] != (0, 2, 1, 3):
+        fail(f"[23] relay orders {orders}, expected {want_orders} with the second (0, 2, 1, 3)")
+    if first["sync_rebuilds"] < 2:
+        fail(f"[23] {first['sync_rebuilds']} step rebuilds, expected at least 2")
+    for rank, got in enumerate(ranks):
+        if (got["seen"], got["events"], got["ring"]) != (first["seen"], first["events"],
+                                                          first["ring"]):
+            fail(f"[23] rank {rank} holds another ring or event list than rank 0")
+        mine = [tuple(r[k] for k in SHARED_RECORD) for r in got["history"]]
+        if mine != [tuple(r[k] for k in SHARED_RECORD) for r in hist]:
+            fail(f"[23] rank {rank}'s records differ from rank 0's")
+        for rec in got["history"]:
+            if not math.isfinite(rec["loss"]) or rec["pods_agree"] != 1.0:
+                fail(f"[23] rank {rank}, step {rec['step']}: loss {rec['loss']}, pods_agree "
+                     f"{rec['pods_agree']}")
+        n = len(got["history"])
+        want = ({"wkv6": 2 * cfg.n_layers * n, "wkv6_backward": cfg.n_layers * n} if kernels
+                else {"wkv6": 0, "wkv6_backward": 0})
+        if got["launches"] != want:
+            fail(f"[23] rank {rank}: launches {got['launches']} over {n} steps run, expected "
+                 f"{want}")
+    steps = [r["step"] for r in hist]
+    replay = TRAINER_FAULT_AT
+    want_steps = list(range(1, replay + 1)) + list(range(TRAINER_CKPT_EVERY + 1,
+                                                         TRAINER_STEPS + 1))
+    if first["fired"] != [replay] or steps != want_steps or first["step_idx"] != TRAINER_STEPS:
+        fail(f"[23] steps run {steps} (fault {first['fired']}), expected {want_steps}, ending "
+             f"at {TRAINER_STEPS}")
+    again = hist[TRAINER_CKPT_EVERY:replay], hist[replay:2 * replay - TRAINER_CKPT_EVERY]
+    if [(r["loss"], r["grad_norm"]) for r in again[0]] != [(r["loss"], r["grad_norm"])
+                                                           for r in again[1]]:
+        fail(f"[23] the replayed steps differ from their first run: {again}")
+    by_step = {s["step"]: s["ring"] for s in first["seen"]}
+    if by_step[replay] != want_orders[1]:
+        fail(f"[23] step {replay} ran on {by_step[replay]}, not on {want_orders[1]}")
+    if not hist[-1]["loss"] < hist[0]["loss"]:
+        fail(f"[23] the loss does not fall: {hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}")
+    print(f"[23] gates hold: relay orders {orders}, {first['sync_rebuilds']} step rebuilds; "
+          f"every rank the same ring, events and records before every step; pods agree after "
+          f"every step; step {replay} replayed bit for bit in loss and gradient norm on ring "
+          f"{by_step[replay]}; the run ends at step {first['step_idx']}; WKV6 launches exact; "
+          f"the loss falls")
+
+
+def run_trainer() -> None:
+    """Phase 23: the trainer on four pods of the card (four ranks of one gloo
+    group), gated here across the ranks."""
+    import tempfile
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import run_local_ranks
+    from repro_torch.models.model import param_count
+
+    cfg = dataclasses.replace(get_config(RWKV), n_layers=TRAINER_LAYERS)
+    n = param_count(cfg)
+    print(f"[23] the trainer: {cfg.name} on a {TRAINER_MESH} mesh on one card (4 ranks over "
+          f"gloo, each a CUDA context on cuda:0): full width, {TRAINER_LAYERS} of 32 layers, "
+          f"{n:,} parameters a pod ({16 * n / 1e9:.2f} GB of f32 state), global batch "
+          f"{TRAINER_BATCH} x {TRAINER_SEQ} (1 x {TRAINER_SEQ} a pod), bf16 compute, remat, hier, "
+          f"AdamW at its defaults; a ControlPlane over the square "
+          f"{SQUARE_MS} for {SQUARE_ROUNDS} rounds, then (0, 1) and (2, 3) at {SPIKE_MS} ms "
+          f"(replan and degrade sustain 2); a checkpoint every {TRAINER_CKPT_EVERY} steps, a "
+          f"FaultInjected on every rank before step {TRAINER_FAULT_AT + 1}")
+    with shared_card(), tempfile.TemporaryDirectory(prefix="trainer-") as ckpt_dir:
+        try:
+            ranks = run_local_ranks(trainer_rank, math.prod(TRAINER_MESH),
+                                    (cfg, "cuda", TRAINER_SEQ, ckpt_dir),
+                                    timeout=TRAINER_TIMEOUT)
+        except (RuntimeError, TimeoutError) as err:
+            fail(f"[23] {err}")
+    first = ranks[0]
+    print(f"[23] {first['plane']}")
+    print(f"[23] events on every rank: {first['events']}")
+    hist = first["history"]
+    losses = ", ".join(f"{r['loss']:.4f}" for r in hist)
+    peaks = ", ".join(f"{got['peak_gb']:.2f}" for got in ranks)
+    print(f"[23] {len(hist)} steps run (steps {[r['step'] for r in hist]}: step "
+          f"{TRAINER_FAULT_AT} replayed after the rollback to step {TRAINER_CKPT_EVERY}), losses "
+          f"{losses}; launches a rank {counts_text(first['launches'])} ({2 * TRAINER_LAYERS} "
+          f"forward, {TRAINER_LAYERS} backward a step expected, the replay included); straggler "
+          f"trips (threshold 1.5, sustain 3, on the slowest rank's step) {first['trips']}; peak "
+          f"device memory a rank {peaks} GB")
+    for rank, got in enumerate(ranks):
+        ring = {s["step"]: s["ring"] for s in got["seen"]}
+        for rec in got["history"]:
+            device_s = rec["exchange_s"] - rec["exchange_host_s"]
+            print(f"  rank {rank} step {rec['step']} on ring {ring.get(rec['step'])}: "
+                  f"{rec['dt'] * 1e3:.1f} ms = forward + backward {rec['compute_s'] * 1e3:.1f}, "
+                  f"exchange {rec['exchange_s'] * 1e3:.1f} (device {device_s * 1e3:.1f}, host "
+                  f"staging + gloo {rec['exchange_host_s'] * 1e3:.1f}), AdamW "
+                  f"{rec['adamw_s'] * 1e3:.1f}; {rec['bytes_sent'] / 1e9:.3f} GB to gloo")
+        for save in got["saves"]:
+            write = "none" if save["write_s"] is None else f"{save['write_s']:.2f} s"
+            print(f"  rank {rank} checkpoint at step {save['step']}: gathers and host copy "
+                  f"{save['copy_s']:.2f} s, the writer thread's files {write}")
+    check_trainer(ranks, cfg, kernels=True)
+
+
 def run_topk(shapes, dev, filter_ms: float) -> dict:
     """Phase 20: geococo's chunked top-k (``topk_select``: f32 g + r, per
     chunk of 2048 the top 10% by magnitude, the sent values and the new
@@ -2818,6 +3050,12 @@ def main() -> None:
     t_phase = time.perf_counter()
     run_tp()
     print(f"  [22] took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 23. the trainer on four pods of the emptied card
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    run_trainer()
+    print(f"  [23] took {time.perf_counter() - t_phase:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

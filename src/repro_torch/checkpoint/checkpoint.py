@@ -21,6 +21,7 @@ import json
 import os
 import shutil
 import threading
+import time
 from typing import Any
 
 import numpy as np
@@ -81,11 +82,19 @@ def save_async(ckpt_dir: str, step: int, tree: Any) -> threading.Thread:
     """Non-blocking save; returns the writer thread (join() to fence).  The
     host copy is taken before the thread starts, because the train step
     updates parameters and optimizer state in place; only the file I/O runs
-    on the thread."""
+    on the thread, whose ``write_s`` holds the seconds it took once it has
+    ended."""
     host = _snapshot(tree)
-    t = threading.Thread(target=_write, args=(ckpt_dir, step, host), daemon=True)
-    t.start()
-    return t
+
+    def write() -> None:
+        t0 = time.perf_counter()  # lint: allow[wallclock] the checkpoint's write time
+        _write(ckpt_dir, step, host)
+        thread.write_s = time.perf_counter() - t0  # lint: allow[wallclock] the checkpoint's write time
+
+    thread = threading.Thread(target=write, daemon=True)
+    thread.write_s = None
+    thread.start()
+    return thread
 
 
 def available_steps(ckpt_dir: str) -> list[int]:

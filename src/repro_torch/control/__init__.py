@@ -1,2 +1,34 @@
-"""The port's own copy of the control plane's event types; the control plane
-itself comes with the trainer slice."""
+"""The port's network control plane (its own copy of ``repro.control``):
+:class:`NetworkView` over traces (:class:`TraceView`), full-mesh EWMA
+probing (:class:`MonitorView`) and Vivaldi coordinates
+(:class:`VivaldiView`); :class:`ControlPlane`, which owns the damped
+``Replanner`` and the relay-order search and emits typed
+:class:`NetworkEvent`\\ s; the trainer (``repro_torch.train.trainer``)
+subscribes and reacts to :class:`RelayOrderChanged` through each
+``device_sync`` strategy's declared reaction."""
+
+from .events import (
+    LinkDegraded,
+    LinkRecovered,
+    NetworkEvent,
+    PlanChanged,
+    RelayOrderChanged,
+)
+from .network import MonitorView, NetworkView, TraceView, VivaldiView, as_view
+from .plane import ControlPlane, relay_ring_order, ring_cost
+
+__all__ = [
+    "NetworkEvent",
+    "LinkDegraded",
+    "LinkRecovered",
+    "PlanChanged",
+    "RelayOrderChanged",
+    "NetworkView",
+    "TraceView",
+    "MonitorView",
+    "VivaldiView",
+    "as_view",
+    "ControlPlane",
+    "relay_ring_order",
+    "ring_cost",
+]

@@ -14,7 +14,7 @@ vocabulary of events that *both* synchronization planes consume:
   against this module's class, not the reference's).
 
 Events are frozen dataclasses: subscribers may hold them and compare them.
-The port's control plane, which emits them, comes with its trainer slice.
+The port's :class:`~repro_torch.control.plane.ControlPlane` emits them.
 """
 
 from __future__ import annotations

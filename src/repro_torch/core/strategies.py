@@ -3,7 +3,8 @@
 
 Entries are registered by ``(kind, name)``; the device plane registers its
 gradient-exchange strategies under ``device_sync``
-(``repro_torch.dist.collectives``).  Names are shared with the reference:
+(``repro_torch.dist.collectives``), the planners theirs under ``planner``
+(``repro_torch.core.planner``).  Names are shared with the reference:
 ``flat`` / ``hier`` / ``geococo`` mean the same exchange in both packages.
 This is not the reference's table: the port cannot import ``repro``, so it
 keeps its own.  The reference's WAN-plane presets (``wan_sync``) belong to

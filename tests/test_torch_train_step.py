@@ -287,12 +287,13 @@ def test_train_cli_on_the_cpu(capsys):
     assert "done: loss" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--control"], ["--control-noise", "0.2"]])
-def test_train_cli_refuses_what_needs_a_later_slice(flag, capsys):
-    with pytest.raises(SystemExit) as err:
-        train_mod.main(["--arch", "rwkv6-7b", "--smoke", "--device", "cpu", *flag])
-    assert err.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+@pytest.mark.parametrize("n_pods", [2, 4])
+def test_train_cli_control_on_gloo_ranks(n_pods):
+    """``--control`` at its default probe noise (0.10) on two and four pods:
+    the reference's control-plane summary on the same seed."""
+    from test_torch_train_sync import check_control_cli
+
+    check_control_cli(n_pods, ["--control"], 0.10)
 
 
 def moe_cli_rank(rank: int, argv: list) -> list[float]:

@@ -357,9 +357,53 @@ def test_cli_trains_across_two_pods():
     assert printed[1] == ""
 
 
-@pytest.mark.parametrize("flag,named", [(["--control-noise", "0.2"], "6c"),
-                                        (["--mesh", "2,1,1"], "the world has 1"),
-                                        (["--control"], "6c"),
+def control_cli_rank(rank: int, argv: list) -> str:
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_mod.main(argv)
+    return out.getvalue()
+
+
+def reference_control_line(n_pods: int, steps: int, seed: int, noise: float) -> str:
+    """The reference CLI's summary of its control plane (``repro.launch.train``:
+    the first ``n_pods`` AWS regions under jitter, probed with ``noise``),
+    the plane replayed alone for ``steps`` rounds, one a step; under hier
+    each ``RelayOrderChanged`` rebuilds the step once."""
+    import repro.control as rctl
+    from repro.core.latency import aws_latency_matrix, jitter_trace
+
+    trace = jitter_trace(aws_latency_matrix()[:n_pods, :n_pods], max(steps, 2),
+                         np.random.default_rng(seed))
+    plane = rctl.ControlPlane(rctl.MonitorView(rctl.TraceView(trace), noise=noise,
+                                               rng=np.random.default_rng(seed + 1)))
+    for _ in range(steps):
+        plane.step()
+    rebuilds = plane.event_counts().get("RelayOrderChanged", 0)
+    return (f"control plane: {plane.round} rounds, {plane.replan_count} replans, relay order "
+            f"{plane.relay_order}, events {plane.event_counts()}, probe traffic "
+            f"{plane.probe_bytes} B; step rebuilds {rebuilds}")
+
+
+def check_control_cli(n_pods: int, flags: list, noise: float) -> None:
+    """``--control`` on ``n_pods`` gloo ranks: rank 0 prints the reference's
+    summary line for the same seed, the others print nothing."""
+    steps, seed = 4, 2
+    argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--mesh", f"{n_pods},1,1",
+            "--steps", str(steps), "--seq-len", "8", "--global-batch", str(n_pods),
+            "--seed", str(seed), *flags]
+    printed = run_local_ranks(control_cli_rank, n_pods, (argv,), timeout=RANK_TIMEOUT)
+    lines = [line for line in printed[0].splitlines() if line.startswith("control plane:")]
+    assert lines == [reference_control_line(n_pods, steps, seed, noise)]
+    assert f"{n_pods} pod(s), sync hier" in printed[0]
+    assert all(p == "" for p in printed[1:])
+
+
+@pytest.mark.parametrize("n_pods", [2, 4])
+def test_cli_control_noise_on_gloo_ranks(n_pods):
+    check_control_cli(n_pods, ["--control", "--control-noise", "0.2"], 0.2)
+
+
+@pytest.mark.parametrize("flag,named", [(["--mesh", "2,1,1"], "the world has 1"),
                                         (["--sync", "bogus"], "unknown sync strategy")])
 def test_cli_refuses_by_name(flag, named, capsys):
     with pytest.raises(SystemExit) as err:
