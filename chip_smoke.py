@@ -162,12 +162,40 @@ Phases, each of which fails the run (nonzero exit, no result line):
    ran on, compute, the exchange (device and host), AdamW, the bytes to
    gloo; the straggler trips (the reference's threshold 1.5 and sustain 3,
    on the slowest rank's step time), the checkpoint's blocking part and
-   its writer thread's time; peak memory a rank.
+   its writer thread's time; peak memory a rank;
+24. deepseek-v3-671b (MLA, a shared expert and 256 routed experts, top 8)
+   at full width and 4 of its 61 layers (the 3 dense-prefix MLA blocks and
+   one MLA + MoE block; 60.44 GB of f32 weights): (a) ``mla_apply`` alone
+   on one layer's f32 weights at (2, 2056), without a cache (through
+   ``flash_attention``, asserted) against the cached prefill of the same
+   input (dense over the cache), within 1e-5 of the output's largest
+   value; (b) the check of phase 4 at batch 2, prompt 32 and 8 decode steps
+   on an MLA cache, f32 and bf16, on a copy of the config whose capacity
+   factor (32 = experts / top-k) drops nothing, failed on purpose by a
+   decode fed a zeroed MLA cache (ckv, kr); (c) the drop rate at the
+   published 1.25 as phase 13 measures it; (d) served as in phase 5 at
+   1.25, every kernel's count 0;
+25. llama-3.2-vision-90b at full width and 5 of its 100 layers (4
+   self-attention blocks and the cross-attention block) with an image
+   context of (B, 1601, 8192) drawn from the seed, given to every call: the
+   check of phase 4, failed on purpose by a zeroed KV cache and, in f32, by
+   decode steps fed another image context than the prefill's (it moves the
+   logits by ~3% of the largest, below bf16's limit); served as in phase 5
+   with the image context, every kernel's count 0;
+26. hubert-xlarge (encoder-only, the frames frontend) at full width and all
+   48 layers: ``flash_attention`` against ``dense_attention`` at (1, 4096,
+   16, 16, 80), not causal, f32; the prefill step (``launch.serve.encode``)
+   over 8 x 512 frames in f32 and bf16 compute, every kernel's count 0,
+   with its time, frames/s, device busy share and peak memory; bf16 within
+   2e-2 of f32's largest logit over the first 4 layers (over all 48 bf16's
+   rounding grows past it, printed); row 0's last frame changed moves row 0's
+   first position and leaves rows 1-7 bit for bit; a 1 x 4096 forward
+   through the non-causal ``flash_attention`` in every layer (asserted).
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13 and 15-23 each on an empty card after the phase
+released, and phases 11, 13 and 15-26 each on an empty card after the phase
 before.  Each phase prints its wall time.
 
 The line before the last lists the kernels as JSON; the last line is
@@ -203,6 +231,26 @@ BATCH, PROMPT_LEN, GEN_LEN = 8, 512, 32
 CHECK_PROMPT, CHECK_STEPS = 64, 4
 # phases 7, 11 and 13: a long prompt, then decode steps
 LONG_BATCH, LONG_PROMPT, LONG_STEPS = 2, 2048, 8
+# phases 24-26: MLA, cross-attention and the frames frontend at full width.
+# deepseek-v3-671b at 4 of 61 layers (the 3 dense-prefix MLA blocks and one
+# MLA + MoE block: the least depth that holds every block kind; 15.1e9
+# parameters, 60.44 GB in f32); MLA alone at (2, 2056), above 2048 tokens,
+# where its uncached path attends blockwise; the decode check at batch 2 x
+# (32 + 8): drop-free dispatch (capacity factor 256 / 8 = 32) holds a
+# buffer of E x t rows of d_model, 0.59 GB at t = 80 where the served 8 x
+# 512 would need 30 GB beside the weights.  llama-3.2-vision-90b at 5 of
+# 100 layers (4 self-attention blocks and the cross-attention block: one
+# period of its pattern).  hubert-xlarge whole (48 layers); a 1 x 4096
+# forward through the non-causal flash attention.
+MLA_ARCH, VLM_ARCH, AUDIO_ARCH = "deepseek-v3-671b", "llama-3.2-vision-90b", "hubert-xlarge"
+MLA_LAYERS, VLM_LAYERS = 4, 5
+MLA_ALONE_BATCH, MLA_ALONE_SEQ, MLA_ALONE_TOL = 2, 2056, 1e-5
+MLA_CHECK_BATCH, MLA_CHECK_PROMPT, MLA_CHECK_STEPS = 2, 32, 8
+AUDIO_LONG = 4096
+# hubert's bf16 step is held against f32 over its first 4 layers (8 x 512
+# frames): over all 48 random layers bf16's rounding grows past 2e-2 of the
+# largest logit, in the reference as in the port
+AUDIO_BF16_LAYERS = 4
 
 # kernel vs plain, f32, relative to the output scale.  WKV6: the plain
 # version sums y through a batched matmul in another order.  RG-LRU: the
@@ -252,6 +300,7 @@ FLASH_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # injected cache faults: the cache leaves zeroed before every decode step
 RWKV_FAULTS = {"a zeroed WKV state": ("s",)}
 ATTN_FAULTS = {"a zeroed attention KV cache": ("k", "v")}
+MLA_FAULTS = {"a zeroed MLA cache (ckv, kr)": ("ckv", "kr")}
 RG_FAULTS = {"a zeroed RG-LRU state (h, conv)": ("h", "conv"), **ATTN_FAULTS}
 GEMM_KERNEL_MARKS = ("gemm", "nvjet", "xmma", "cutlass")
 
@@ -912,13 +961,16 @@ def print_busy(label: str, device_ms: float | None, wall_ms: float) -> None:
               f"main path: device busy {device_ms / wall_ms:.1%}")
 
 
-def _logits(cfg, params, tokens, cdt, cache=None):
+def _logits(cfg, params, tokens, cdt, cache=None, extra=None):
+    """The forward's f32 logits over ``tokens``, with the inputs ``extra``
+    (a VLM's image context) beside them, and its new cache."""
     import torch
 
     from repro_torch.models.model import forward
 
     with torch.inference_mode():
-        out, cache = forward(cfg, params, {"tokens": tokens}, cache=cache, compute_dtype=cdt)
+        out, cache = forward(cfg, params, {"tokens": tokens, **(extra or {})}, cache=cache,
+                             compute_dtype=cdt)
     if not bool(torch.isfinite(out).all()):
         fail(f"forward over {tuple(tokens.shape)} ({cdt}) produced non-finite logits")
     return out.float(), cache
@@ -929,13 +981,19 @@ def _rel(got, want) -> float:
     return (got - want).abs().max().item() / max(1.0, want.abs().max().item())
 
 
-def decode_limit(cfg, params, seq, cdt, full, prompt: int = CHECK_PROMPT) -> float:
+def _rows(extra, i: int):
+    return {k: v[i:i + 1] for k, v in (extra or {}).items()}
+
+
+def decode_limit(cfg, params, seq, cdt, full, prompt: int = CHECK_PROMPT, extra=None) -> float:
     """FLOOR_MULT x the noise floor of the stepwise-vs-full comparison, or
-    DECODE_TOL where that is larger.  ``full`` is the forward over ``seq``."""
+    DECODE_TOL where that is larger.  ``full`` is the forward over ``seq``
+    (with ``extra``)."""
     import torch
 
-    prefix = _rel(_logits(cfg, params, seq[:, :prompt], cdt)[0][:, -1], full[:, prompt - 1])
-    split = torch.cat([_logits(cfg, params, seq[i:i + 1], cdt)[0][:, prompt:]
+    prefix = _rel(_logits(cfg, params, seq[:, :prompt], cdt, extra=extra)[0][:, -1],
+                  full[:, prompt - 1])
+    split = torch.cat([_logits(cfg, params, seq[i:i + 1], cdt, extra=_rows(extra, i))[0][:, prompt:]
                        for i in range(seq.shape[0])])
     one_by_one = _rel(split, full[:, prompt:])
     limit = max(DECODE_TOL[str(cdt).removeprefix("torch.")],
@@ -968,35 +1026,43 @@ def _zeroed(tree, names: tuple[str, ...]):
 
 
 def decode_vs_full(cfg, params, seq, cdt, full, *, prompt: int = CHECK_PROMPT,
-                   zero: tuple[str, ...] = ()) -> list[tuple[str, float]]:
+                   zero: tuple[str, ...] = (), extra=None,
+                   decode_extra=None) -> list[tuple[str, float]]:
     """``(label, error relative to the largest logit)`` per position: prefill
     of ``prompt`` tokens on a cache of ``seq``'s length, then the decode
     steps, against ``full``, the forward over all of ``seq`` in ``cdt``
-    compute.  Each decode step is fed a cache whose leaves named in ``zero``
-    are zeroed (a fault the check must catch)."""
+    compute, each call with the inputs ``extra``.  Each decode step is fed
+    a cache whose leaves named in ``zero`` are zeroed, and ``decode_extra``
+    in place of ``extra`` where given (faults the check must catch)."""
     from repro_torch.models.model import init_cache
 
     cache = init_cache(cfg, seq.shape[0], seq.shape[1], dtype=cdt, device=seq.device)
-    pre, cache = _logits(cfg, params, seq[:, :prompt], cdt, cache)
+    pre, cache = _logits(cfg, params, seq[:, :prompt], cdt, cache, extra)
     out = [(f"position {prompt - 1} (prefill)", _rel(pre[:, -1], full[:, prompt - 1]))]
     for t in range(prompt, seq.shape[1]):
-        step, cache = _logits(cfg, params, seq[:, t:t + 1], cdt, _zeroed(cache, zero))
+        step, cache = _logits(cfg, params, seq[:, t:t + 1], cdt, _zeroed(cache, zero),
+                              extra if decode_extra is None else decode_extra)
         out.append((f"position {t} (decode)", _rel(step[:, 0], full[:, t])))
     return out
 
 
-def check_decode(cfg, params, seq, cdt, prompt: int, faults: dict) -> None:
-    """Phases 4, 6 and 7: every decode position within the limit, every
-    injected fault beyond it."""
-    full = _logits(cfg, params, seq, cdt)[0]
-    limit = decode_limit(cfg, params, seq, cdt, full, prompt)
-    for label, err in decode_vs_full(cfg, params, seq, cdt, full, prompt=prompt):
+def check_decode(cfg, params, seq, cdt, prompt: int, faults: dict, extra=None,
+                 input_faults: dict | None = None) -> None:
+    """Phases 4, 6, 7, 11, 13, 24 and 25: every decode position within the
+    limit, every injected fault beyond it: a cache whose leaves named in a
+    ``faults`` value are zeroed, or decode steps fed an ``input_faults``
+    value in place of ``extra``."""
+    full = _logits(cfg, params, seq, cdt, extra=extra)[0]
+    limit = decode_limit(cfg, params, seq, cdt, full, prompt, extra)
+    for label, err in decode_vs_full(cfg, params, seq, cdt, full, prompt=prompt, extra=extra):
         print(f"  {label}: {err:.3e} x the largest logit ({err / limit:.2f} of the limit)")
         if err > limit:
             fail(f"{cfg.name} {cdt} {label}: stepwise vs full {err:.3e} > {limit:.3e}")
-    for fault, names in faults.items():
+    cases = [(fault, {"zero": names}) for fault, names in faults.items()]
+    cases += [(fault, {"decode_extra": wrong}) for fault, wrong in (input_faults or {}).items()]
+    for fault, how in cases:
         faulty = [err for label, err in decode_vs_full(cfg, params, seq, cdt, full,
-                                                       prompt=prompt, zero=names)
+                                                       prompt=prompt, extra=extra, **how)
                   if "decode" in label]
         print(f"  decode fed {fault}: {', '.join(f'{e:.3e}' for e in faulty)} "
               f"({max(faulty) / limit:.1f} x the limit at most)")
@@ -1031,20 +1097,24 @@ def phase_serve(tag: str, cfg, params, tcfg, dev, counters: dict, expected: dict
     """Serve ``cfg`` at BATCH x PROMPT_LEN, GEN_LEN tokens, through
     ``launch.serve``, with every kernel's launch count set to 0 just before
     and read just after; the device time of a prefill (before serving casts
-    the weights) and of a decode step by kernel.  Returns the counts."""
+    the weights) and of a decode step by kernel.  A VLM gets the image
+    context ``launch.serve.make_image`` draws from the prompts' seed, with
+    the prefill and every decode step.  Returns the counts."""
     import torch
 
-    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.launch.serve import make_image, make_prompts, serve
     from repro_torch.models.model import forward, init_cache
     from repro_torch.train.train_step import build_serve_step
 
     prompts = make_prompts(cfg, BATCH, PROMPT_LEN, seed=0)
+    img = make_image(cfg, BATCH, PROMPT_LEN, seed=0)
+    extra = {} if img is None else {"img": torch.from_numpy(img).to(dev)}
     max_len = PROMPT_LEN + GEN_LEN
     matmul_params, matmul_flops, expert_text = prefill_matmuls(cfg, BATCH * PROMPT_LEN)
 
     def prefill():       # as serve() prefills: f32 compute on the f32 weights
         with torch.inference_mode():
-            forward(cfg, params, {"tokens": torch.from_numpy(prompts).to(dev)},
+            forward(cfg, params, {"tokens": torch.from_numpy(prompts).to(dev), **extra},
                     cache=init_cache(cfg, BATCH, max_len, dtype=torch.float32, device=dev),
                     compute_dtype=torch.float32)
 
@@ -1056,7 +1126,7 @@ def phase_serve(tag: str, cfg, params, tcfg, dev, counters: dict, expected: dict
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
-    res = serve(cfg, params, prompts, GEN_LEN, tcfg, dev)
+    res = serve(cfg, params, prompts, GEN_LEN, tcfg, dev, img)
     launches = {name: fn.launches for name, fn in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if launches != expected:
@@ -1089,7 +1159,7 @@ def phase_serve(tag: str, cfg, params, tcfg, dev, counters: dict, expected: dict
              "tok": torch.zeros((BATCH, 1), dtype=torch.int32, device=dev)}
 
     def decode():
-        tok, state["cache"] = step(params, state["cache"], {"tokens": state["tok"]})
+        tok, state["cache"] = step(params, state["cache"], {"tokens": state["tok"], **extra})
         state["tok"] = tok[:, None]
 
     decode()
@@ -1098,8 +1168,9 @@ def phase_serve(tag: str, cfg, params, tcfg, dev, counters: dict, expected: dict
     return launches
 
 
-def draw(tag: str, arch: str, tcfg, dev):
-    """The config of ``arch`` and its f32 weights, drawn on the card."""
+def draw(tag: str, arch: str, tcfg, dev, n_layers: int | None = None):
+    """The config of ``arch`` (cut to its first ``n_layers`` layers where
+    given) and its f32 weights, drawn on the card."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -1107,6 +1178,10 @@ def draw(tag: str, arch: str, tcfg, dev):
     from repro_torch.models.model import param_count
 
     cfg = get_config(arch)
+    if n_layers is not None:
+        print(f"{tag} {cfg.name}: {n_layers} of its {cfg.n_layers} layers, "
+              f"{[f'{b.mixer}/{b.ffn}' for b in cfg.block_list()[:n_layers]]}")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     params = init_model(cfg, tcfg, seed=0, device=dev)
     torch.cuda.synchronize()
@@ -1189,11 +1264,14 @@ def spying(module, name: str, record):
         setattr(module, name, real)
 
 
-def phase_flash_vs_dense(tag: str) -> None:
-    """flash_attention against dense_attention on the card at the shape the
-    long forward of phase 11 gives it (minitron-8b's heads, 2 x 2056
-    tokens, the chunks attention_any picks), f32 and bf16; the device time
-    of each and, as a yardstick only, of PyTorch's
+def phase_flash_vs_dense(tag: str, arch: str = DENSE, b: int = LONG_BATCH,
+                         s: int = LONG_PROMPT + LONG_STEPS, causal: bool = True,
+                         dtypes: tuple[str, ...] = ("float32", "bfloat16")) -> None:
+    """flash_attention against dense_attention on the card at the shape a
+    long forward gives it (``arch``'s heads, b x s tokens, the chunks
+    attention_any picks; phase 11: minitron-8b at 2 x 2056, causal; phase
+    26: hubert-xlarge at 1 x 4096, not causal), in ``dtypes``; the device
+    time of each and, as a yardstick only, of PyTorch's
     scaled_dot_product_attention on the same inputs (its error printed, not
     gated)."""
     import torch
@@ -1202,27 +1280,27 @@ def phase_flash_vs_dense(tag: str) -> None:
     from repro_torch.configs.registry import get_config
     from repro_torch.models.layers import _largest_chunk, dense_attention, flash_attention
 
-    cfg = get_config(DENSE)
-    b, s, hq, hkv, d = (LONG_BATCH, LONG_PROMPT + LONG_STEPS, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.resolved_head_dim)
+    cfg = get_config(arch)
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     chunk = _largest_chunk(s, 1024)
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (getattr(torch, name) for name in dtypes):
         q = torch.randn((b, s, hq, d), generator=gen, device="cuda").to(dt)
         k, v = (torch.randn((b, s, hkv, d), generator=gen, device="cuda").to(dt)
                 for _ in range(2))
-        flash = functools.partial(flash_attention, q, k, v, causal=True, q_chunk=chunk,
+        flash = functools.partial(flash_attention, q, k, v, causal=causal, q_chunk=chunk,
                                   kv_chunk=chunk)
-        dense = functools.partial(dense_attention, q, k, v, causal=True)
+        dense = functools.partial(dense_attention, q, k, v, causal=causal)
         # the yardstick in its own layout, kv heads repeated for the q heads
         qs, ks, vs = (x.transpose(1, 2).contiguous()
                       for x in (q, k.repeat_interleave(hq // hkv, 2),
                                 v.repeat_interleave(hq // hkv, 2)))
-        sdpa = functools.partial(F.scaled_dot_product_attention, qs, ks, vs, is_causal=True)
+        sdpa = functools.partial(F.scaled_dot_product_attention, qs, ks, vs, is_causal=causal)
         want = dense().float()
         label = str(dt).removeprefix("torch.")
         check_close(f"flash_attention vs dense_attention {(b, s, hq, hkv, d)} {label}, "
-                    f"chunks {chunk}", flash().float(), want, FLASH_TOL[label])
+                    f"{'causal' if causal else 'not causal'}, chunks {chunk}", flash().float(),
+                    want, FLASH_TOL[label])
         sdpa_err = (sdpa().transpose(1, 2).float() - want).abs().max().item()
         times = {name: device_ms([fn], reps=3) for name, fn in
                  (("flash_attention", flash), ("dense_attention", dense), ("sdpa", sdpa))}
@@ -1292,19 +1370,21 @@ def run_minitron(dev, tcfg, counters) -> dict:
                        {name: 0 for name in counters})
 
 
-def moe_drop_rates(tag: str, cfg, params, tcfg, dev) -> None:
+def moe_drop_rates(tag: str, cfg, params, tcfg, dev, no_drop_rows=None) -> None:
     """The drop rate at the published capacity factor, from moe_apply's aux
     on the first MoE layer's input at the served shapes: the prefill of the
     served prompts (f32) and the first decode step after it (in the decode
     dtype).  The decode check's copy of the config must drop nothing on the
-    prefill's input."""
+    prefill's input, or on its first ``no_drop_rows`` = (rows, tokens)
+    where the decode check runs at that shape."""
     import torch
 
     from repro_torch.launch.serve import make_prompts
     from repro_torch.models import moe
     from repro_torch.models.model import init_cache
 
-    first = params["layers"][0]["ffn"]
+    first = next(layer["ffn"] for layer, blk in zip(params["layers"], cfg.block_list())
+                 if blk.ffn == "moe")
     inputs = []
     prompts = torch.from_numpy(make_prompts(cfg, BATCH, PROMPT_LEN, seed=0)).to(dev)
     with spying(moe, "moe_apply", lambda p, x, **kw: p is first and inputs.append(x)):
@@ -1325,7 +1405,8 @@ def moe_drop_rates(tag: str, cfg, params, tcfg, dev) -> None:
                   f"{float(aux['drop_rate']):.6f} of {t * m.top_k} assignments; aux loss "
                   f"{float(aux['aux_loss']):.6f}")
         no_drop = m.n_experts / m.top_k
-        _, aux = moe.moe_apply(first, inputs[0], top_k=m.top_k, capacity_factor=no_drop,
+        x = inputs[0] if no_drop_rows is None else inputs[0][:no_drop_rows[0], :no_drop_rows[1]]
+        _, aux = moe.moe_apply(first, x, top_k=m.top_k, capacity_factor=no_drop,
                                return_aux=True)
     if float(aux["drop_rate"]) != 0.0:
         fail(f"{cfg.name}: capacity factor {no_drop} drops {float(aux['drop_rate'])}")
@@ -1350,6 +1431,202 @@ def run_granite(dev, tcfg, counters) -> dict:
     memory_line("[13]", "end")
     return phase_serve("[14]", cfg, params, tcfg, dev, counters,
                        {name: 0 for name in counters})
+
+
+def phase_mla_alone(tag: str, cfg, dev) -> None:
+    """Phase 24 (a): one layer's MLA at full width on its f32 weights, at
+    MLA_ALONE_BATCH x MLA_ALONE_SEQ: the uncached path, which attends
+    through flash_attention above 2048 tokens (asserted from its calls),
+    against the cached prefill of the same input, which attends densely
+    over the cache, within MLA_ALONE_TOL of the output's largest value."""
+    import torch
+
+    from repro_torch.models import layers, mla
+
+    b, s = MLA_ALONE_BATCH, MLA_ALONE_SEQ
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = mla.mla_init(gen, cfg.d_model, cfg.n_heads, cfg.mla, dev)
+    x = torch.randn((b, s, cfg.d_model), generator=gen, device=dev)
+    chunk = layers._largest_chunk(s, 1024)
+    calls = []
+    with torch.inference_mode(), spying(mla, "flash_attention",
+                                        lambda q, k, v, **kw: calls.append(
+                                            (q.shape[1], kw["q_chunk"], kw["causal"]))):
+        t0 = time.perf_counter()
+        flash, _ = mla.mla_apply(p, x, n_heads=cfg.n_heads, mla=cfg.mla,
+                                 rope_theta=cfg.rope_theta)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache = mla.mla_init_cache(b, s, cfg.mla, torch.float32, dev)
+        dense, cache = mla.mla_apply(p, x, n_heads=cfg.n_heads, mla=cfg.mla,
+                                     rope_theta=cfg.rope_theta, cache=cache)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    if calls != [(s, chunk, True)]:
+        fail(f"mla_apply at {(b, s)} without a cache: flash_attention calls {calls}, "
+             f"expected one over {s} tokens in chunks of {chunk}")
+    scale = dense.abs().max().item()
+    err = (flash - dense).abs().max().item()
+    print(f"{tag} (a) mla_apply, one layer's weights ({sum(t.numel() for t in _tensors(p)):,} "
+          f"f32 parameters), x {(b, s, cfg.d_model)}: uncached (flash_attention, chunks "
+          f"{chunk}) {(t1 - t0) * 1e3:.1f} ms, cached prefill (dense over the cache) "
+          f"{(t2 - t1) * 1e3:.1f} ms; max abs err {err:.3e}, {err / scale:.2e} of the output's "
+          f"largest value {scale:.3e} (tol {MLA_ALONE_TOL:g})")
+    if not bool(torch.isfinite(flash).all()) or err > MLA_ALONE_TOL * scale:
+        fail(f"mla_apply flash vs dense over the cache: {err:.3e} > {MLA_ALONE_TOL:g} x {scale:.3e}")
+    del p, x, flash, dense, cache
+    torch.cuda.empty_cache()
+
+
+def run_deepseek(dev, tcfg, counters) -> dict:
+    """Phase 24 on an emptied card; the weights are freed on return.  The
+    decode check runs on a copy of the config whose capacity factor (256 /
+    8 = 32) drops nothing, as phase 13's does; the drop rates and serving
+    at the published 1.25."""
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import make_prompts
+
+    memory_line("[24]", "start")
+    phase_mla_alone("[24]", get_config(MLA_ARCH), dev)
+    cfg, params = draw("[24]", MLA_ARCH, tcfg, dev, n_layers=MLA_LAYERS)
+    no_drop = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    n = MLA_CHECK_PROMPT + MLA_CHECK_STEPS
+    seq = torch.from_numpy(make_prompts(cfg, MLA_CHECK_BATCH, n, seed=1)).to(dev)
+    for cdt in (torch.float32, tcfg.compute_dtype):
+        print(f"[24] (b) prefill {MLA_CHECK_PROMPT} + {MLA_CHECK_STEPS} decode steps vs full "
+              f"forward, batch {MLA_CHECK_BATCH}, all {cfg.n_layers} layers, {cdt} compute "
+              f"({tcfg.param_dtype} weights), an MLA cache of {n} positions, capacity factor "
+              f"{no_drop.moe.capacity_factor} (nothing drops)")
+        check_decode(no_drop, params, seq, cdt, MLA_CHECK_PROMPT, MLA_FAULTS)
+    del seq
+    torch.cuda.empty_cache()
+    memory_line("[24]", "end")
+    moe_drop_rates("[24] (c)", cfg, params, tcfg, dev, no_drop_rows=(MLA_CHECK_BATCH, n))
+    torch.cuda.empty_cache()
+    return phase_serve("[24] (d)", cfg, params, tcfg, dev, counters,
+                       {name: 0 for name in counters})
+
+
+def run_vision(dev, tcfg, counters) -> dict:
+    """Phase 25 on an emptied card; the weights are freed on return: the
+    check of phase 4 with the image context given to every call, failed on
+    purpose by a zeroed KV cache and, in f32, by decode steps fed another
+    image context than the prefill's; then served with the image context.
+    The cross block's whole contribution moves the logits of this random
+    5-layer model by ~3% of the largest, which the f32 limit (1e-4) sees
+    and bf16's (4 x a floor of ~1.7e-2) cannot: a check of the image in
+    bf16 would pass a decode that ignored it."""
+    import torch
+
+    from repro_torch.launch.serve import make_image, make_prompts
+
+    memory_line("[25]", "start")
+    cfg, params = draw("[25]", VLM_ARCH, tcfg, dev, n_layers=VLM_LAYERS)
+    n = CHECK_PROMPT + CHECK_STEPS
+    seq = torch.from_numpy(make_prompts(cfg, BATCH, n, seed=1)).to(dev)
+    img, other = ({"img": torch.from_numpy(make_image(cfg, BATCH, n, seed=k)).to(dev)}
+                  for k in (1, 2))
+    for cdt in (torch.float32, tcfg.compute_dtype):
+        print(f"[25] prefill {CHECK_PROMPT} + {CHECK_STEPS} decode steps vs full forward, all "
+              f"{cfg.n_layers} layers, {cdt} compute ({tcfg.param_dtype} weights), a linear "
+              f"cache of {n} positions, an image context of {tuple(img['img'].shape)}")
+        check_decode(cfg, params, seq, cdt, CHECK_PROMPT, ATTN_FAULTS, extra=img,
+                     input_faults={"another image context": other}
+                     if cdt == torch.float32 else None)
+    del seq, img, other
+    torch.cuda.empty_cache()
+    memory_line("[25]", "end")
+    return phase_serve("[25]", cfg, params, tcfg, dev, counters,
+                       {name: 0 for name in counters})
+
+
+def run_hubert(dev, tcfg, counters) -> None:
+    """Phase 26 on an emptied card; the weights are freed on return: the
+    prefill step (``launch.serve.encode``) over BATCH x PROMPT_LEN frames in
+    f32 and in the compute dtype, every kernel's count 0; bf16 against f32
+    at DECODE_TOL over the first AUDIO_BF16_LAYERS layers; the non-causal
+    check; a 1 x AUDIO_LONG forward through
+    the non-causal flash_attention; flash against dense at that shape."""
+    import torch
+
+    from repro_torch.launch.serve import encode, make_frames
+    from repro_torch.models import layers
+    from repro_torch.models.model import forward
+
+    memory_line("[26]", "start")
+    phase_flash_vs_dense("[26]", AUDIO_ARCH, 1, AUDIO_LONG, causal=False, dtypes=("float32",))
+    cfg, params = draw("[26]", AUDIO_ARCH, tcfg, dev)
+    frames = make_frames(cfg, BATCH, PROMPT_LEN, seed=0)
+    logits = {}
+    for cdt in (torch.float32, tcfg.compute_dtype):
+        run_cfg = dataclasses.replace(tcfg, compute_dtype=cdt)
+        encode(cfg, params, frames, run_cfg, dev)           # cuBLAS set-up, outside the timing
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        res = encode(cfg, params, frames, run_cfg, dev)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if any(launches.values()):
+            fail(f"{cfg.name}: kernel launches on the prefill step {launches}, expected none")
+        logits[cdt] = res.logits.float()
+        print(f"[26] {cfg.name} prefill step {BATCH}x{PROMPT_LEN} frames ({cdt} compute): "
+              f"{res.prefill_s * 1e3:.1f} ms, {BATCH * PROMPT_LEN / res.prefill_s:.0f} frames/s; "
+              f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; kernel "
+              f"launches {launches}")
+        dev_ms = profile_device(f"prefill step {BATCH}x{PROMPT_LEN} ({cdt})",
+                                lambda c=run_cfg: encode(cfg, params, frames, c, dev), 1)
+        print_busy(f"prefill step ({cdt})", dev_ms, res.prefill_s * 1e3)
+    # bf16 against f32 within DECODE_TOL, on the first AUDIO_BF16_LAYERS
+    # layers: every block is the same kind, so a fault of the bf16 path shows
+    # there, while bf16's rounding, which grows with depth over random
+    # layers (in the reference as in the port, PERF.md §6), stays below the
+    # tolerance.  The whole model's difference is printed beside it.
+    want, half = logits[torch.float32], logits[tcfg.compute_dtype]
+    cut = dataclasses.replace(cfg, n_layers=AUDIO_BF16_LAYERS)
+    cut_logits = [encode(cut, params, frames, dataclasses.replace(tcfg, compute_dtype=cdt),
+                         dev).logits.float() for cdt in (torch.float32, tcfg.compute_dtype)]
+    rel = _rel(cut_logits[1], cut_logits[0])
+    print(f"[26] {tcfg.compute_dtype} vs float32 logits: {rel:.3e} x the largest logit over the "
+          f"first {AUDIO_BF16_LAYERS} layers (tol {DECODE_TOL['bfloat16']:g}); "
+          f"{_rel(half, want):.3e} over all {cfg.n_layers}")
+    if rel > DECODE_TOL["bfloat16"]:
+        fail(f"{cfg.name}: bf16 prefill vs f32 over {AUDIO_BF16_LAYERS} layers "
+             f"{rel:.3e} > {DECODE_TOL['bfloat16']:g}")
+
+    # not causal: row 0's last frame reaches row 0's first position, and only row 0
+    moved = frames.copy()
+    moved[0, -1] = make_frames(cfg, 1, 1, seed=1)[0, 0]
+    got = encode(cfg, params, moved, dataclasses.replace(tcfg, compute_dtype=torch.float32),
+                 dev).logits
+    first = (got[0, 0] - want[0, 0]).abs().max().item()
+    same = torch.equal(got[1:], want[1:])
+    print(f"[26] row 0's last frame changed: row 0's first position moved by {first:.3e}; "
+          f"rows 1-{BATCH - 1} bit for bit the same: {same}")
+    if first == 0.0 or not same:
+        fail(f"{cfg.name}: the non-causal check failed (first position moved {first}, "
+             f"other rows the same {same})")
+
+    # a long input: attention_any takes the non-causal flash_attention
+    calls = []
+    long = torch.from_numpy(make_frames(cfg, 1, AUDIO_LONG, seed=2)).to(dev)
+    with torch.inference_mode(), spying(layers, "flash_attention",
+                                        lambda q, k, v, **kw: calls.append(
+                                            (q.shape[1], kw["q_chunk"], kw["causal"]))):
+        t0 = time.perf_counter()
+        out, _ = forward(cfg, params, {"embeds": long}, compute_dtype=torch.float32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    chunk = layers._largest_chunk(AUDIO_LONG, 1024)
+    print(f"[26] forward over 1 x {AUDIO_LONG} frames, f32: {(t1 - t0) * 1e3:.1f} ms; "
+          f"flash_attention calls by (length, chunk, causal): "
+          f"{dict(collections.Counter(calls))}")
+    if calls != [(AUDIO_LONG, chunk, False)] * cfg.n_layers or not bool(torch.isfinite(out).all()):
+        fail(f"{cfg.name}: the 1 x {AUDIO_LONG} forward did not go through the non-causal "
+             f"flash_attention in every layer, or is not finite")
+    memory_line("[26]", "end")
 
 
 @contextlib.contextmanager
@@ -3056,6 +3333,15 @@ def main() -> None:
     t_phase = time.perf_counter()
     run_trainer()
     print(f"  [23] took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 24-26. MLA, cross-attention and the frames frontend, each on the emptied card
+    for tag, run in (("[24]", run_deepseek), ("[25]", run_vision), ("[26]", run_hubert)):
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        run(dev, tcfg, counters)
+        torch.cuda.empty_cache()
+        print(f"  {tag} took {time.perf_counter() - t_phase:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

@@ -1,13 +1,12 @@
 """Model / shape configuration dataclasses (the port's own copy of
-``repro.configs.base``; MLA settings arrive with the slice that ports
-MLA)."""
+``repro.configs.base``)."""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Literal
 
-__all__ = ["MoEConfig", "Block", "ModelConfig", "ShapeSpec"]
+__all__ = ["MoEConfig", "MLAConfig", "Block", "ModelConfig", "ShapeSpec"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,6 +22,21 @@ class MoEConfig:
     @property
     def shared_hidden(self) -> int:
         return self.d_shared or self.d_expert
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention dimensions."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 # mixer:  attn | attn_local | attn_cross | mla | rwkv | rglru
@@ -45,12 +59,13 @@ class ModelConfig:
     vocab_size: int
     head_dim: int = 0             # 0 -> d_model // n_heads
     qkv_bias: bool = False
-    causal: bool = True
+    causal: bool = True           # False for encoder-only (hubert)
     blocks_prefix: tuple[Block, ...] = ()
     blocks_pattern: tuple[Block, ...] = (Block(),)
     moe: MoEConfig | None = None
+    mla: MLAConfig | None = None
     local_window: int = 0
-    n_img_tokens: int = 0
+    n_img_tokens: int = 0         # vlm: image-context length of the cross blocks
     frontend: Literal["token", "frames", "patches"] = "token"
     rope_theta: float = 10_000.0
     norm_eps: float = 1e-6
@@ -82,6 +97,10 @@ class ModelConfig:
         n_scan = rest // p
         suffix = self.blocks_pattern[: rest % p]
         return pre, n_scan, self.blocks_pattern, suffix
+
+    @property
+    def is_encoder_only(self) -> bool:
+        return not self.causal
 
 
 @dataclasses.dataclass(frozen=True)

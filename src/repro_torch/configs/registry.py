@@ -1,12 +1,15 @@
 """Architecture registry: ``--arch <id>`` resolution for the port's entry
-points.  It holds the architectures whose path the port runs so far."""
+points.  It holds the reference's ten architectures."""
 
 from __future__ import annotations
 
 from . import (
     deepseek_7b,
     deepseek_coder_33b,
+    deepseek_v3_671b,
     granite_moe_3b,
+    hubert_xlarge,
+    llama32_vision_90b,
     minitron_8b,
     qwen2_5_32b,
     recurrentgemma_9b,
@@ -24,6 +27,9 @@ _MODULES = {
         qwen2_5_32b,
         deepseek_coder_33b,
         granite_moe_3b,
+        deepseek_v3_671b,
+        llama32_vision_90b,
+        hubert_xlarge,
     )
 }
 

@@ -7,10 +7,18 @@ the recurrent state and the attention cache.  Counterpart of
 
 ``ARCH`` is one of ``configs.registry.ARCHS``: rwkv6-7b (the default),
 recurrentgemma-9b, minitron-8b, deepseek-7b, qwen2.5-32b,
-deepseek-coder-33b, granite-moe-3b-a800m.
+deepseek-coder-33b, granite-moe-3b-a800m, deepseek-v3-671b,
+llama-3.2-vision-90b, hubert-xlarge.
 
 Prompts come from numpy with ``--seed``; parameters from a
-``torch.Generator`` seeded the same way, on the device.  The cache holds
+``torch.Generator`` seeded the same way, on the device.  A VLM's image
+context (numpy normal, (B, n_img_tokens, d_model)) is drawn from the same
+generator after the prompts, as the JAX example draws it, and goes with the
+prefill and with every decode step.  An encoder-only model (hubert-xlarge)
+has no decode: for it the command runs the prefill step
+(``build_serve_step(kind="prefill")``) over ``--batch`` x ``--prompt-len``
+frames (numpy normal, (B, S, d_model)) from ``--seed`` and prints its time
+and frames/s.  The cache holds
 ``prompt_len + gen_len`` positions, as the JAX example sizes it.  Prefill
 runs in f32 compute on an f32 cache; decode runs in
 ``TrainConfig.compute_dtype``, as the JAX example does.  Between the two the
@@ -35,7 +43,8 @@ from ..models.layers import Params
 from ..models.model import cast_params_, forward, init_cache, init_params, param_dtypes
 from ..train.train_step import TrainConfig, build_serve_step
 
-__all__ = ["ServeResult", "make_prompts", "init_model", "serve", "main"]
+__all__ = ["ServeResult", "EncodeResult", "make_prompts", "make_image", "make_frames",
+           "init_model", "serve", "encode", "main"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +54,33 @@ class ServeResult:
     decode_s: float         # the gen_len - 1 decode steps
 
 
+@dataclasses.dataclass(frozen=True)
+class EncodeResult:
+    logits: torch.Tensor    # (B, S, V) in the compute dtype, on the device
+    prefill_s: float        # the prefill step, ending in a device synchronise
+
+
 def make_prompts(cfg: ModelConfig, batch: int, prompt_len: int, seed: int = 0) -> np.ndarray:
     rng = np.random.default_rng(seed)
     return rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int32)
+
+
+def make_image(cfg: ModelConfig, batch: int, prompt_len: int, seed: int = 0) -> np.ndarray | None:
+    """The image context of ``make_prompts(cfg, batch, prompt_len, seed)``:
+    (B, n_img_tokens, d_model) float32 normal, drawn from the seed's
+    generator after the prompts; None for a model without one."""
+    if not cfg.n_img_tokens:
+        return None
+    rng = np.random.default_rng(seed)
+    rng.integers(0, cfg.vocab_size, (batch, prompt_len))
+    return rng.normal(size=(batch, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
+
+
+def make_frames(cfg: ModelConfig, batch: int, n_frames: int, seed: int = 0) -> np.ndarray:
+    """Frame embeddings for a frames frontend: (B, S, d_model) float32
+    normal from ``seed``."""
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=(batch, n_frames, cfg.d_model)).astype(np.float32)
 
 
 def init_model(cfg: ModelConfig, tcfg: TrainConfig, seed: int = 0,
@@ -66,12 +99,21 @@ def _sync(device: torch.device) -> None:
 
 def serve(cfg: ModelConfig, params: Params, prompts: np.ndarray, gen_len: int,
           tcfg: TrainConfig = TrainConfig(),
-          device: str | torch.device | None = None) -> ServeResult:
-    """Prefill ``prompts`` (B, P), then decode to ``gen_len`` tokens in all.
-    ``params`` must be in ``tcfg.param_dtype``; they are cast in place to
-    ``tcfg.compute_dtype`` after prefill, so a second call with the same
-    parameters raises rather than prefilling on the cast copy."""
+          device: str | torch.device | None = None,
+          img: np.ndarray | None = None) -> ServeResult:
+    """Prefill ``prompts`` (B, P), then decode to ``gen_len`` tokens in all;
+    ``img`` (B, n_img_tokens, d_model), a VLM's image context, goes with
+    the prefill and every decode step.  ``params`` must be in
+    ``tcfg.param_dtype``; they are cast in place to ``tcfg.compute_dtype``
+    after prefill, so a second call with the same parameters raises rather
+    than prefilling on the cast copy.  An encoder-only model has no decode
+    (see :func:`encode`)."""
     device = resolve_device(device)
+    if cfg.is_encoder_only:
+        raise ValueError(f"{cfg.name} is encoder-only: it has no decode step; run its "
+                         "prefill step (encode) instead")
+    if cfg.n_img_tokens and img is None:
+        raise ValueError(f"{cfg.name} cross-attends to an image context: pass img")
     if gen_len < 1:
         raise ValueError(f"gen_len must be >= 1, got {gen_len}")
     if param_dtypes(params) != {tcfg.param_dtype}:
@@ -91,10 +133,11 @@ def serve(cfg: ModelConfig, params: Params, prompts: np.ndarray, gen_len: int,
             "refuses it"
         )
     toks = torch.from_numpy(np.ascontiguousarray(prompts, dtype=np.int32)).to(device)
+    extra = {} if img is None else {"img": torch.from_numpy(img).to(device)}
     with torch.inference_mode():
         t0 = time.perf_counter()  # lint: allow[wallclock] measured serving time
         cache = init_cache(cfg, b, max_len, dtype=torch.float32, device=device)
-        logits, cache = forward(cfg, params, {"tokens": toks}, cache=cache,
+        logits, cache = forward(cfg, params, {"tokens": toks, **extra}, cache=cache,
                                 compute_dtype=torch.float32)
         last = logits[:, -1].float()
         del logits
@@ -110,7 +153,7 @@ def serve(cfg: ModelConfig, params: Params, prompts: np.ndarray, gen_len: int,
         t2 = time.perf_counter()  # lint: allow[wallclock] measured serving time
         outs = [tok]
         for _ in range(gen_len - 1):
-            tok, cache = step(params, cache, {"tokens": tok[:, None]})
+            tok, cache = step(params, cache, {"tokens": tok[:, None], **extra})
             outs.append(tok)
         _sync(device)
         t3 = time.perf_counter()  # lint: allow[wallclock] measured serving time
@@ -118,7 +161,28 @@ def serve(cfg: ModelConfig, params: Params, prompts: np.ndarray, gen_len: int,
     return ServeResult(tokens=tokens, prefill_s=t1 - t0, decode_s=t3 - t2)
 
 
-def main(argv: list[str] | None = None) -> ServeResult:
+def encode(cfg: ModelConfig, params: Params, frames: np.ndarray,
+           tcfg: TrainConfig = TrainConfig(),
+           device: str | torch.device | None = None) -> EncodeResult:
+    """The prefill step (``build_serve_step(kind="prefill")``, in
+    ``tcfg.compute_dtype``) over ``frames`` (B, S, d_model), for a model
+    whose frontend reads frame embeddings."""
+    device = resolve_device(device)
+    if cfg.frontend != "frames":
+        raise ValueError(f"{cfg.name} reads {cfg.frontend}, not frames")
+    step = build_serve_step(cfg, tcfg, kind="prefill", device=device)
+    embeds = torch.from_numpy(np.ascontiguousarray(frames, dtype=np.float32))
+    _sync(device)
+    t0 = time.perf_counter()  # lint: allow[wallclock] measured serving time
+    logits = step(params, {"embeds": embeds})
+    if not bool(torch.isfinite(logits).all()):
+        raise RuntimeError("the prefill step produced non-finite logits")
+    _sync(device)
+    t1 = time.perf_counter()  # lint: allow[wallclock] measured serving time
+    return EncodeResult(logits=logits, prefill_s=t1 - t0)
+
+
+def main(argv: list[str] | None = None) -> ServeResult | EncodeResult:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="rwkv6-7b", choices=ARCHS)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
@@ -133,8 +197,18 @@ def main(argv: list[str] | None = None) -> ServeResult:
     tcfg = TrainConfig()
     device = resolve_device(args.device)
     params = init_model(cfg, tcfg, args.seed, device)
+    if cfg.is_encoder_only:
+        frames = make_frames(cfg, args.batch, args.prompt_len, args.seed)
+        enc = encode(cfg, params, frames, tcfg, device)
+        if enc.logits.shape != (args.batch, args.prompt_len, cfg.vocab_size):
+            raise RuntimeError(f"logits have shape {tuple(enc.logits.shape)}")
+        print(f"arch={cfg.name}: prefill step over {args.batch} x {args.prompt_len} frames "
+              f"({tcfg.compute_dtype}) on {device} in {enc.prefill_s * 1e3:.1f} ms, "
+              f"{args.batch * args.prompt_len / enc.prefill_s:.0f} frames/s")
+        return enc
     prompts = make_prompts(cfg, args.batch, args.prompt_len, args.seed)
-    res = serve(cfg, params, prompts, args.gen_len, tcfg, device)
+    img = make_image(cfg, args.batch, args.prompt_len, args.seed)
+    res = serve(cfg, params, prompts, args.gen_len, tcfg, device, img)
     print(f"arch={cfg.name}: prefilled {args.batch} x {args.prompt_len} tokens "
           f"on {device} in {res.prefill_s * 1e3:.1f} ms")
     gen = res.tokens

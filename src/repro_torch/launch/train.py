@@ -59,7 +59,14 @@ def _trainer(cfg: ModelConfig, tcfg: TrainConfig, data_cfg: DataConfig, steps: i
              device: str | torch.device | None, log_every: int, mesh,
              control=None) -> Trainer:
     """A :class:`Trainer` for ``steps`` steps, resumed from ``ckpt_dir``'s
-    latest checkpoint where there is one."""
+    latest checkpoint where there is one.  Raises ``NotImplementedError``
+    for a model that reads frames or an image context: the data pipeline,
+    as the reference's ``SyntheticLM`` (``src/repro/data/pipeline.py``),
+    yields tokens only."""
+    if cfg.frontend != "token" or cfg.n_img_tokens:
+        raise NotImplementedError(
+            f"{cfg.name} reads {'frames' if cfg.frontend != 'token' else 'an image context'}; "
+            "the synthetic data pipeline yields tokens only, so it does not train yet")
     run_cfg = TrainerConfig(steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
                             log_every=log_every, seed=seed)
     trainer = Trainer(cfg, mesh, tcfg, run_cfg, data_cfg, control=control, device=device)

@@ -404,8 +404,12 @@ def gqa_apply(
     window: int = 0,
     rope_theta: float = 10_000.0,
     cache: Params | None = None,         # {"k", "v", "len"} for decode
+    kv_source: torch.Tensor | None = None,  # (B, N, d) cross-attention context
 ) -> tuple[torch.Tensor, Params | None]:
-    """Self-attention with RoPE.  With a cache the new keys and values are
+    """Self-attention with RoPE, or with ``kv_source`` cross-attention: keys
+    and values projected from the context on every call, no rotation,
+    attention over the whole context (not causal), nothing cached (the
+    cache is not read).  With a cache the new keys and values are
     written into a copy of it (the caller's cache is left as it was), as a
     linear buffer, or as a ring of ``window`` entries when the cache is that
     long.  The ring refuses a multi-token write that would evict a key an
@@ -418,6 +422,12 @@ def gqa_apply(
     :func:`pad_heads_for_tp`'s layout and its rows of ``wo``, and the
     ranks' parts are summed over ``model`` in f32."""
     ctx = dist_context.current()
+    if kv_source is not None:
+        if ctx is not None and ctx.model_size > 1:
+            raise NotImplementedError(
+                "cross-attention with heads split over model is not ported yet")
+        return _cross_attend(p, x, kv_source, n_heads=n_heads, n_kv=n_kv,
+                             head_dim=head_dim), None
     if cache is None and ctx is not None and ctx.model_size > 1:
         return _gqa_tp(p, x, ctx, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, causal=causal,
                        window=window, rope_theta=rope_theta), None
@@ -470,6 +480,19 @@ def gqa_apply(
     out = out.to(x.dtype)
     y = dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
     return y, new_cache
+
+
+def _cross_attend(p: Params, x: torch.Tensor, src: torch.Tensor, *, n_heads: int, n_kv: int,
+                  head_dim: int) -> torch.Tensor:
+    """``gqa_apply``'s cross-attention: queries from ``x``, keys and values
+    from ``src``, as the reference's ``gqa_apply`` with ``kv_source``."""
+    b, s, _ = x.shape
+    n = src.shape[1]
+    q = dense_apply(p["wq"], x).reshape(b, s, n_heads, head_dim)
+    k = dense_apply(p["wk"], src).reshape(b, n, n_kv, head_dim)
+    v = dense_apply(p["wv"], src).reshape(b, n, n_kv, head_dim)
+    out = attention_any(q, k, v, causal=False).to(x.dtype)
+    return dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
 
 
 def gqa_init_cache(b: int, max_len: int, n_kv: int, head_dim: int, *,

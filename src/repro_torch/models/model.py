@@ -16,10 +16,12 @@ Public API:
     region_leaves(cfg)                                -> keys of the leaves
                                                          split over ``model``
 
-The port runs the mixers ``rwkv``, ``rglru``, ``attn`` and ``attn_local``
-and the ffns ``rwkv_cmix``, ``dense``, ``moe`` and ``none``; any other block,
-or a frontend other than tokens, raises ``NotImplementedError`` naming the
-slice that will port it.
+Every block kind of the reference runs: the mixers ``attn``,
+``attn_local``, ``attn_cross`` (over ``batch["img"]``), ``mla``, ``rwkv``
+and ``rglru``, the ffns ``dense``, ``moe``, ``rwkv_cmix`` and ``none``; an
+unknown one raises ``ValueError``.  A frontend other than tokens reads
+``batch["embeds"]`` through one projection, ``embed_proj``, as the
+reference's stub frontend does.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch.utils.checkpoint
 from ..configs.base import Block, ModelConfig
 from ..device import resolve_device
 from ..tree import leaf_paths
+from . import mla as mla_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import rwkv6 as rwkv_mod
@@ -56,10 +59,6 @@ __all__ = [
     "param_count", "region_leaves",
 ]
 
-_MIXERS = ("rwkv", "rglru", "attn", "attn_local")
-_FFNS = ("rwkv_cmix", "dense", "moe", "none")
-_LATER_SLICE = "MLA, cross-attention and frames frontend"
-
 # sub-trees of a layer that the model reads in f32 whatever the compute
 # dtype, so cast_params_ leaves them f32:
 # * rwkv6.py: w_base feeds the f32 decay, ln_g/ln_b the f32 group norm;
@@ -75,21 +74,6 @@ F32_SUBTREES = frozenset({
 })
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.frontend != "token":
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} is not ported yet; it comes with the "
-            f"{_LATER_SLICE} slice of the port"
-        )
-    for blk in cfg.block_list():
-        for part, known in ((blk.mixer, _MIXERS), (blk.ffn, _FFNS)):
-            if part not in known:
-                raise NotImplementedError(
-                    f"{part!r} blocks are not ported yet; they come with the "
-                    f"{_LATER_SLICE} slice of the port"
-                )
-
-
 def _block_init(gen, cfg: ModelConfig, block: Block, device) -> Params:
     d = cfg.d_model
     p: Params = {"norm1": rmsnorm_init(d, device)}
@@ -98,9 +82,13 @@ def _block_init(gen, cfg: ModelConfig, block: Block, device) -> Params:
     elif block.mixer == "rglru":
         p["mixer"] = rglru_mod.rglru_block_init(gen, d, cfg.rglru_lru_width or d, device,
                                                 cfg.rglru_conv_width)
-    else:                                                   # attn, attn_local
+    elif block.mixer in ("attn", "attn_local", "attn_cross"):
         p["mixer"] = gqa_init(gen, d, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
                               device, bias=cfg.qkv_bias)
+    elif block.mixer == "mla":
+        p["mixer"] = mla_mod.mla_init(gen, d, cfg.n_heads, cfg.mla, device)
+    else:
+        raise ValueError(f"unknown mixer {block.mixer!r}")
     if block.ffn != "none":
         p["norm2"] = rmsnorm_init(d, device)
     if block.ffn == "rwkv_cmix":
@@ -110,6 +98,8 @@ def _block_init(gen, cfg: ModelConfig, block: Block, device) -> Params:
     elif block.ffn == "moe":
         p["ffn"] = moe_mod.moe_init(gen, d, cfg.moe.n_experts, cfg.moe.d_expert, device,
                                     n_shared=cfg.moe.n_shared, d_shared=cfg.moe.d_shared)
+    elif block.ffn != "none":
+        raise ValueError(f"unknown ffn {block.ffn!r}")
     return p
 
 
@@ -121,8 +111,14 @@ def _block_cache(cfg: ModelConfig, block: Block, b: int, max_len: int | None,
     if block.mixer == "rglru":
         return rglru_mod.rglru_init_state(b, cfg.rglru_lru_width or cfg.d_model,
                                           cfg.rglru_conv_width, dtype=dtype, device=device)
-    if max_len is None:                                     # attn, attn_local
+    if block.mixer == "attn_cross":
+        return {"len": 0}            # the context comes with every call; nothing cached
+    if block.mixer not in ("attn", "attn_local", "mla"):
+        raise ValueError(f"unknown mixer {block.mixer!r}")
+    if max_len is None:
         raise ValueError(f"{cfg.name} has attention blocks: init_cache needs max_len")
+    if block.mixer == "mla":
+        return mla_mod.mla_init_cache(b, max_len, cfg.mla, dtype=dtype, device=device)
     # a global attention cache is linear; a local one a ring where it spans the window
     window = min(cfg.local_window, max_len) if block.mixer == "attn_local" else 0
     return gqa_init_cache(b, max_len, cfg.n_kv_heads, cfg.resolved_head_dim,
@@ -130,7 +126,7 @@ def _block_cache(cfg: ModelConfig, block: Block, b: int, max_len: int | None,
 
 
 def _block_apply(cfg: ModelConfig, block: Block, p: Params, x: torch.Tensor,
-                 cache: Params | None):
+                 cache: Params | None, img: torch.Tensor | None = None):
     h = rmsnorm_apply(p["norm1"], x, eps=cfg.norm_eps)
     if block.mixer == "rwkv":
         y, new_t = rwkv_mod.rwkv_tmix_apply(
@@ -140,6 +136,18 @@ def _block_apply(cfg: ModelConfig, block: Block, p: Params, x: torch.Tensor,
         new_cache = None if cache is None else dict(cache, tmix=new_t)
     elif block.mixer == "rglru":
         y, new_cache = rglru_mod.rglru_block_apply(p["mixer"], h, state=cache)
+    elif block.mixer == "attn_cross":
+        if img is None:
+            raise ValueError(f"{cfg.name}: a cross-attention block needs the image context, "
+                             "batch['img']")
+        y, _ = gqa_apply(p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                         head_dim=cfg.resolved_head_dim, causal=False,
+                         rope_theta=cfg.rope_theta, kv_source=img)
+        new_cache = None if cache is None else {"len": cache["len"] + x.shape[1]}
+    elif block.mixer == "mla":
+        y, new_cache = mla_mod.mla_apply(p["mixer"], h, n_heads=cfg.n_heads, mla=cfg.mla,
+                                         causal=cfg.causal, rope_theta=cfg.rope_theta,
+                                         cache=cache)
     else:                                                   # attn, attn_local
         y, new_cache = gqa_apply(
             p["mixer"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -169,17 +177,20 @@ def _block_apply(cfg: ModelConfig, block: Block, p: Params, x: torch.Tensor,
 def init_params(cfg: ModelConfig, generator: torch.Generator | None,
                 device: str | torch.device | None = None) -> Params:
     """float32 parameters drawn from ``generator``, which lives on ``device``
-    (``None`` on the meta device, where only shapes are made)."""
-    _check_ported(cfg)
+    (``None`` on the meta device, where only shapes are made).  A model
+    whose frontend is not tokens has ``embed_proj`` (d_model x d_model) in
+    place of the table, and its own ``lm_head``."""
     device = resolve_device(device)
     if device.type != "meta" and (generator is None or generator.device.type != device.type):
         raise ValueError(f"init_params on {device} needs a torch.Generator on that device")
-    params: Params = {
-        "embed": embed_init(generator, cfg.vocab_size, cfg.d_model, device),
-        "layers": [_block_init(generator, cfg, b, device) for b in cfg.block_list()],
-        "final_norm": rmsnorm_init(cfg.d_model, device),
-    }
-    if not cfg.tie_embeddings:
+    params: Params = {}
+    if cfg.frontend == "token":
+        params["embed"] = embed_init(generator, cfg.vocab_size, cfg.d_model, device)
+    else:
+        params["embed_proj"] = dense_init(generator, cfg.d_model, cfg.d_model, device)
+    params["layers"] = [_block_init(generator, cfg, b, device) for b in cfg.block_list()]
+    params["final_norm"] = rmsnorm_init(cfg.d_model, device)
+    if not cfg.tie_embeddings or cfg.frontend != "token":
         params["lm_head"] = dense_init(generator, cfg.d_model, cfg.vocab_size, device,
                                        scale=0.02)
     return params
@@ -192,8 +203,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int | None = None,
     caches: a global-attention cache holds ``max_len`` positions, a
     local-attention one ``min(local_window, max_len)``, a ring when that is
     the window.  Recurrent state is O(1) in
-    length, so a model without attention blocks may leave it out."""
-    _check_ported(cfg)
+    length, so a model without attention blocks may leave it out.  An MLA
+    block caches its latents (``mla.mla_init_cache``); a cross-attention
+    block only its length."""
     device = resolve_device(device)
     return {"layers": [_block_cache(cfg, b, batch, max_len, dtype, device)
                        for b in cfg.block_list()]}
@@ -208,8 +220,12 @@ def forward(
     compute_dtype: torch.dtype = torch.bfloat16,
     gather: Callable[[str, Params], Params] | None = None,
 ) -> tuple[torch.Tensor, Params | None]:
-    """``batch["tokens"]`` is (B, S).  Returns (logits (B, S, V) in
-    ``compute_dtype``, new_cache or None).
+    """``batch["tokens"]`` is (B, S), or ``batch["embeds"]`` (B, S, d) for
+    a model whose frontend is not tokens; ``batch["img"]`` (B, N_img, d) is
+    the context of the cross-attention blocks, given with every call, the
+    decode steps' too.  ``embeds`` and ``img`` are cast to
+    ``compute_dtype``.  Returns (logits (B, S, V) in ``compute_dtype``,
+    new_cache or None).
 
     With ``cfg.remat``, grad enabled and no cache (a training forward), each
     block runs under ``torch.utils.checkpoint``: its activations are freed
@@ -218,29 +234,35 @@ def forward(
     are the same either way.
 
     ``gather(key, subtree)`` gives the parameters a part of the model uses
-    (``embed``, ``layers/{i}``, ``final_norm``, ``lm_head``) from what
+    (``embed`` or ``embed_proj``, ``layers/{i}``, ``final_norm``, ``lm_head``) from what
     ``params`` holds there, just before that part runs, and inside the
     checkpointed block, so that remat's recompute gathers a block's
     parameters again (``dist.inpod.gather_tree``: a rank holds blocks of
     the leaves).  By default ``params`` holds the whole leaves."""
-    _check_ported(cfg)
     if gather is None:
         def gather(key: str, sub: Params) -> Params:
             return sub
-    x = embed_apply(gather("embed", params["embed"]), batch["tokens"], compute_dtype)
+    if cfg.frontend == "token":
+        x = embed_apply(gather("embed", params["embed"]), batch["tokens"], compute_dtype)
+    else:
+        x = dense_apply(gather("embed_proj", params["embed_proj"]),
+                        batch["embeds"].to(compute_dtype))
+    img = batch.get("img")
+    if img is not None:
+        img = img.to(compute_dtype)
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     new_layers = []
     for i, blk in enumerate(cfg.block_list()):
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 lambda p, xx, blk=blk, i=i: _block_apply(cfg, blk, gather(f"layers/{i}", p),
-                                                         xx, None)[0],
+                                                         xx, None, img)[0],
                 params["layers"][i], x, use_reentrant=False,
             )
             new_layers.append(None)
             continue
         c = cache["layers"][i] if cache is not None else None
-        x, nc = _block_apply(cfg, blk, gather(f"layers/{i}", params["layers"][i]), x, c)
+        x, nc = _block_apply(cfg, blk, gather(f"layers/{i}", params["layers"][i]), x, c, img)
         new_layers.append(nc)
     x = rmsnorm_apply(gather("final_norm", params["final_norm"]), x, eps=cfg.norm_eps)
     if "lm_head" in params:
@@ -251,11 +273,12 @@ def forward(
 
 
 def _leaves(tree, path: tuple = ()):
-    """``(container, key, path)`` of every tensor leaf."""
-    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
-    for key, leaf in list(items):
-        if isinstance(leaf, (dict, list)):
-            yield from _leaves(leaf, path + (key,))
+    """``(container, key, path)`` of every tensor leaf.  The generator holds
+    no leaf while it waits, so a caller that replaces ``container[key]``
+    frees the old leaf at once."""
+    for key in list(tree) if isinstance(tree, dict) else range(len(tree)):
+        if isinstance(tree[key], (dict, list)):
+            yield from _leaves(tree[key], path + (key,))
         else:
             yield tree, key, path + (key,)
 
@@ -298,9 +321,9 @@ def param_count(cfg: ModelConfig) -> int:
 def region_leaves(cfg: ModelConfig) -> frozenset[str]:
     """The keys (``tree.leaf_paths``) of the leaves that ``forward`` reads
     inside a ``model``-parallel region under a distribution context with
-    ``model`` above 1 (``dist.context``): every attention block's
+    ``model`` above 1 (``dist.context``): every self-attention block's
     projections and every MoE block's router and experts, not its shared
-    experts.  Each ``model`` rank's gradient of such a leaf is a part of
+    experts (MLA runs outside any such region, as in the reference).  Each ``model`` rank's gradient of such a leaf is a part of
     the leaf's."""
     blocks = cfg.block_list()
     keys = set()

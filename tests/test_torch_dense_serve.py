@@ -15,7 +15,9 @@ Tolerances, as in the other serve tests:
 The serve flow is prefill in f32 compute on an f32 cache, then decode in
 the test's dtype on that cache (the port on weights cast once by
 ``cast_params_``, JAX on its f32 weights).  ``test_torch_moe_serve.py``
-reuses the flow helpers for granite-moe-3b-a800m.
+reuses the flow helpers for granite-moe-3b-a800m, and the deepseek-v3 and
+vision tests for theirs; ``extra`` there is a dict of numpy inputs that goes
+with every call beside the tokens (a VLM's image context).
 """
 
 import importlib.util
@@ -70,14 +72,15 @@ def tokens(cfg, seed, s):
     return rng.integers(0, cfg.vocab_size, (B, s)).astype(np.int32)
 
 
-def jax_flow(jcfg, tree, toks, prompt, dtype, greedy):
+def jax_flow(jcfg, tree, toks, prompt, dtype, greedy, extra=None):
     """The JAX serve flow over a cache of ``toks.shape[1]`` positions:
     prefill ``prompt`` tokens in f32, then decode steps in ``dtype``
     (forward + argmax over the last position's f32 logits), fed greedily or
     with ``toks``.  Returns the last-position logits and the tokens."""
     p = jax.tree.map(jnp.asarray, tree)
+    more = {k: jnp.asarray(v) for k, v in (extra or {}).items()}
     cache = jax_model.init_cache(jcfg, B, toks.shape[1], dtype=jnp.float32)
-    logits, cache = jax_model.forward(jcfg, p, {"tokens": jnp.asarray(toks[:, :prompt])},
+    logits, cache = jax_model.forward(jcfg, p, {"tokens": jnp.asarray(toks[:, :prompt]), **more},
                                       cache=cache, compute_dtype=jnp.float32)
     outs, out_toks = [], []
     for t in range(prompt, toks.shape[1] + 1):
@@ -87,19 +90,22 @@ def jax_flow(jcfg, tree, toks, prompt, dtype, greedy):
         if t == toks.shape[1]:
             break
         nxt = out_toks[-1] if greedy else toks[:, t]
-        logits, cache = jax_model.forward(jcfg, p, {"tokens": jnp.asarray(nxt[:, None], jnp.int32)},
+        logits, cache = jax_model.forward(jcfg, p, {"tokens": jnp.asarray(nxt[:, None], jnp.int32),
+                                                    **more},
                                           cache=cache, compute_dtype=dtype)
     return outs, np.stack(out_toks, 1).astype(np.int32)
 
 
-def port_flow(cfg, params, toks, prompt, dtype, greedy):
+def port_flow(cfg, params, toks, prompt, dtype, greedy, extra=None):
     """The port's serve flow, as ``jax_flow``, decoding through
     ``build_serve_step``; checks on the way that the step hands back the
     cache ``forward`` makes."""
     step = build_serve_step(cfg, TrainConfig(compute_dtype=dtype), kind="decode", device="cpu")
+    more = {k: torch.from_numpy(v) for k, v in (extra or {}).items()}
     with torch.inference_mode():
         cache = model.init_cache(cfg, B, toks.shape[1], dtype=torch.float32, device="cpu")
-        logits, cache = model.forward(cfg, params, {"tokens": torch.from_numpy(toks[:, :prompt])},
+        logits, cache = model.forward(cfg, params,
+                                      {"tokens": torch.from_numpy(toks[:, :prompt]), **more},
                                       cache=cache, compute_dtype=torch.float32)
         model.cast_params_(params, dtype)
         outs, out_toks = [], []
@@ -110,7 +116,7 @@ def port_flow(cfg, params, toks, prompt, dtype, greedy):
             if t == toks.shape[1]:
                 break
             nxt = out_toks[-1] if greedy else torch.from_numpy(toks[:, t])
-            batch = {"tokens": nxt[:, None]}
+            batch = {"tokens": nxt[:, None], **more}
             logits, want_cache = model.forward(cfg, params, batch, cache=cache, compute_dtype=dtype)
             tok, cache = step(params, cache, batch)
             assert torch.equal(tok, logits[:, -1].float().argmax(-1).to(torch.int32))
@@ -119,12 +125,16 @@ def port_flow(cfg, params, toks, prompt, dtype, greedy):
     return outs, torch.stack(out_toks, 1).numpy()
 
 
-def check_forward(cfg, jcfg, tree, toks, dtype):
+def check_forward(cfg, jcfg, tree, toks, dtype, extra=None):
+    more = extra or {}
     want, _ = jax_model.forward(jcfg, jax.tree.map(jnp.asarray, tree),
-                                {"tokens": jnp.asarray(toks)}, compute_dtype=getattr(jnp, dtype))
+                                {"tokens": jnp.asarray(toks),
+                                 **{k: jnp.asarray(v) for k, v in more.items()}},
+                                compute_dtype=getattr(jnp, dtype))
     with torch.inference_mode():
         got, cache = model.forward(cfg, params_from_jax(cfg, tree, device="cpu"),
-                                   {"tokens": torch.from_numpy(toks)},
+                                   {"tokens": torch.from_numpy(toks),
+                                    **{k: torch.from_numpy(v) for k, v in more.items()}},
                                    compute_dtype=getattr(torch, dtype))
     assert cache is None
     assert got.shape == (*toks.shape, cfg.vocab_size) and got.dtype == getattr(torch, dtype)
@@ -132,11 +142,12 @@ def check_forward(cfg, jcfg, tree, toks, dtype):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), **tol)
 
 
-def check_serve_flow(cfg, jcfg, tree, toks, dtype):
+def check_serve_flow(cfg, jcfg, tree, toks, dtype, extra=None):
     greedy = dtype == "float32"          # bf16 argmax may flip on a near tie: feed tokens
-    want_logits, want_toks = jax_flow(jcfg, tree, toks, PROMPT, getattr(jnp, dtype), greedy)
+    want_logits, want_toks = jax_flow(jcfg, tree, toks, PROMPT, getattr(jnp, dtype), greedy,
+                                      extra)
     got_logits, got_toks = port_flow(cfg, params_from_jax(cfg, tree, device="cpu"), toks, PROMPT,
-                                     getattr(torch, dtype), greedy)
+                                     getattr(torch, dtype), greedy, extra)
     tol = F32_TOL if dtype == "float32" else BF16_TOL
     for g, w in zip(got_logits, want_logits):
         np.testing.assert_allclose(g, w, **tol)
@@ -144,7 +155,8 @@ def check_serve_flow(cfg, jcfg, tree, toks, dtype):
         np.testing.assert_array_equal(got_toks, want_toks)
         # launch.serve's own flow (f32 decode here) yields the same greedy tokens
         res = serve_mod.serve(cfg, params_from_jax(cfg, tree, device="cpu"), toks[:, :PROMPT],
-                              GEN + 1, TrainConfig(compute_dtype=torch.float32), "cpu")
+                              GEN + 1, TrainConfig(compute_dtype=torch.float32), "cpu",
+                              (extra or {}).get("img"))
         np.testing.assert_array_equal(res.tokens, want_toks)
 
 
@@ -271,7 +283,7 @@ def test_chip_smoke_decode_gate_catches_zeroed_kv_cache(fault):
     check_chip_smoke_gate(cfg, seq, 24, fault)
 
 
-@pytest.mark.parametrize("arch", ARCHS[2:])
+@pytest.mark.parametrize("arch", [a for a in ARCHS[2:] if not get_config(a).is_encoder_only])
 def test_serve_cli_on_cpu(arch, capsys):
     res = serve_mod.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
                           "--prompt-len", "5", "--gen-len", "3"])

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.registry import ARCHS as JAX_ARCHS
 from repro.configs.registry import get_config as jax_get_config
 from repro.configs.registry import get_smoke_config as jax_get_smoke_config
 from repro.models import model as jax_model
@@ -216,28 +217,36 @@ def test_param_count_matches_jax(full):
 
 def test_registry_matches_jax_and_refuses_unknown_arch():
     assert ARCHS == ("rwkv6-7b", "recurrentgemma-9b", "minitron-8b", "deepseek-7b",
-                     "qwen2.5-32b", "deepseek-coder-33b", "granite-moe-3b-a800m")
+                     "qwen2.5-32b", "deepseek-coder-33b", "granite-moe-3b-a800m",
+                     "deepseek-v3-671b", "llama-3.2-vision-90b", "hubert-xlarge")
+    assert sorted(ARCHS) == sorted(JAX_ARCHS)
     for arch in ARCHS:
         for get, jax_get in ((get_config, jax_get_config),
                              (get_smoke_config, jax_get_smoke_config)):
             ours, theirs = dataclasses.asdict(get(arch)), dataclasses.asdict(jax_get(arch))
-            for name, value in ours.items():
-                assert value == theirs[name], (arch, name)
+            assert ours == theirs, arch
     with pytest.raises(KeyError, match="rwkv6-7b"):
-        get_config("deepseek-v3-671b")
+        get_config("deepseek-v4")
 
 
 def test_unported_blocks_name_their_slice():
+    """Every block kind and frontend of the reference is ported: each of
+    its configs builds (MLA, cross-attention and the frames frontend came
+    last).  A block kind the reference does not know is refused by name,
+    as the reference's ``_block_init`` refuses it."""
     smoke = get_smoke_config(ARCH)
     moe = get_smoke_config("granite-moe-3b-a800m").moe
-    for block in (Block("attn", "dense"), Block("rglru", "moe")):     # ported
-        model.param_count(dataclasses.replace(smoke, blocks_pattern=(block,), moe=moe))
-    for block in (Block("mla", "dense"), Block("attn_cross", "dense")):
-        cfg = dataclasses.replace(smoke, blocks_pattern=(block,))
-        with pytest.raises(NotImplementedError, match="MLA, cross-attention and frames frontend"):
-            model.param_count(cfg)
-    with pytest.raises(NotImplementedError, match="frontend 'frames'.*MLA, cross-attention"):
-        model.init_params(dataclasses.replace(smoke, frontend="frames"), None, "meta")
+    mla = get_smoke_config("deepseek-v3-671b").mla
+    for block in (Block("attn", "dense"), Block("rglru", "moe"), Block("mla", "dense"),
+                  Block("attn_cross", "none")):
+        cfg = dataclasses.replace(smoke, blocks_pattern=(block,), moe=moe, mla=mla)
+        assert model.param_count(cfg) == jax_model.param_count(cfg)
+    frames = dataclasses.replace(smoke, frontend="frames")
+    assert "embed_proj" in model.init_params(frames, None, "meta")
+    for block, what in ((Block("ssm", "dense"), "unknown mixer 'ssm'"),
+                        (Block("attn", "glu"), "unknown ffn 'glu'")):
+        with pytest.raises(ValueError, match=what):
+            model.init_params(dataclasses.replace(smoke, blocks_pattern=(block,)), None, "meta")
 
 
 def test_entry_points_default_to_cuda():
