@@ -77,7 +77,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    (one rglru, rglru, attn_local repetition), batch 1 x 4096 through banded
    attention; RG-LRU forward 2 x 2 and backward 2 a step;
 17. granite-moe-3b-a800m training, the same checks but (a), at full width
-   and all 32 layers (52.8 GB of state), batch 1 x 4096 through the plain
+   and 16 of 32 layers (27.0 GB of state; cut for the run's time limit),
+   batch 1 x 4096 through the plain
    flash attention and MoE dispatch, every kernel's count 0;
 18. demo-100m (``examples/train_100m.py``): 100 steps of ``train()`` at
    batch 8 x 256, the loss must fall; the same run saved at step 50 and
@@ -123,7 +124,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    the bytes to gloo in-pod and across the pods; peak memory a rank; hier's
    bytes across the pod against phase 19's flat on (2, 1, 1);
 22. granite-moe-3b-a800m on a (1, 2, 2) mesh: four ranks spawned on the
-   card, at full width and 8 of 32 layers on a 2 x 4096 global batch (1 x
+   card, at full width and 4 of 32 layers on a 2 x 4096 global batch (1 x
    4096 a data rank, shared along model), the published capacity factor
    1.25, bf16 compute, remat, hier: each rank computes 12 of the 24 q
    heads (4 of the 8 kv heads) and 20 of the 40 experts, summed over
@@ -190,12 +191,31 @@ Phases, each of which fails the run (nonzero exit, no result line):
    2e-2 of f32's largest logit over the first 4 layers (over all 48 bf16's
    rounding grows past it, printed); row 0's last frame changed moves row 0's
    first position and leaves rows 1-7 bit for bit; a 1 x 4096 forward
-   through the non-causal ``flash_attention`` in every layer (asserted).
+   through the non-causal ``flash_attention`` in every layer (asserted);
+27. deepseek-v3-671b training at full width, its 3 dense-prefix layers of
+   61 (MLA and the dense FFN of d_ff 18432; 3,603,815,424 parameters, 57.7
+   GB of f32 state; from here on the allocator grows its segments),
+   batch 1 x 4096 (MLA through flash, chunks of 1024): the checks of
+   phase 17 through ``launch.train.train()``, every kernel's count 0;
+28. hubert-xlarge training at full width and all 48 layers (1,260,698,880
+   parameters), batch 1 x 4096 frames drawn from the seed (non-causal
+   flash), 504 codebook targets: the checks of phase 17 through
+   ``build_train_step`` (``train()``'s pipeline yields tokens only), every
+   kernel's count 0;
+29. llama-3.2-vision-90b's cross block alone at full width (one
+   ``attn_cross`` + dense block with the embedding and the untied head;
+   2,957,008,896 parameters), batch 8 x 512 with an image context of (8,
+   1601, 8192) from the seed (dense cross-attention): the checks of phase
+   28; then one ``torch.no_grad()`` forward of it at 1 x 4096 over a
+   1601-token image, which takes ``flash_attention`` with one key a chunk
+   (1601 is prime): its wall and device time, the kv chunk steps counted
+   (4 x 1601 = 6,404 expected, gated) and the f32 accumulators a training
+   step would keep for them, reckoned (not attempted).
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13 and 15-26 each on an empty card after the phase
+released, and phases 11, 13 and 15-29 each on an empty card after the phase
 before.  Each phase prints its wall time.
 
 The line before the last lists the kernels as JSON; the last line is
@@ -251,6 +271,20 @@ AUDIO_LONG = 4096
 # frames): over all 48 random layers bf16's rounding grows past 2e-2 of the
 # largest logit, in the reference as in the port
 AUDIO_BF16_LAYERS = 4
+# phases 27-29: training the models of phases 24-26 at full width, each cut
+# to what 16 B a parameter of f32 state leaves room for on the card:
+# deepseek-v3-671b's MLA_TRAIN_LAYERS dense-prefix blocks (one MoE block
+# alone holds 11.27e9 expert parameters, 180 GB of state) at 1 x 4096: two
+# peaked at 60.97 GB of the card's 85.02 (NVIDIA H100 80GB HBM3, 700 W),
+# which leaves room for the third; hubert-xlarge whole at 1 x 4096 frames;
+# llama-3.2-vision-90b's cross block alone (five layers, one period, would
+# be 102 GB) at 8 x 512, where 512 x 1601 scores stay dense.  Then that block's forward at 1 x
+# HAZARD_SEQ, through flash with kv chunks of 1 (1601 is prime): measured
+# without grad; a training step there would keep an f32 accumulator per
+# chunk step
+MLA_TRAIN_LAYERS = 3
+MLA_TRAIN_SHAPE, AUDIO_TRAIN_SHAPE, VLM_TRAIN_SHAPE = (1, 4096), (1, 4096), (8, 512)
+HAZARD_SEQ = 4096
 
 # kernel vs plain, f32, relative to the output scale.  WKV6: the plain
 # version sums y through a batched matmul in another order.  RG-LRU: the
@@ -350,9 +384,10 @@ POD_TIMEOUT = 600
 INPOD_MESH, INPOD_BATCH = (2, 2, 1), 4
 INPOD_HIER_STEPS, INPOD_GEO_STEPS = 3, 3
 INPOD_TIMEOUT = 900
-# phase 22: granite-moe-3b-a800m at full width and 8 of its 32 layers on a
-# (1, 2, 2) mesh, four ranks on the one card: attention heads and experts
-# split over model, the expert weights gathered over data; global batch 2 x
+# phase 22: granite-moe-3b-a800m at full width and 4 of its 32 layers (for
+# the run's time limit: at 8 this phase took 127.5 s of a 1086 s run on the
+# NVIDIA H100 80GB HBM3, 700 W) on a (1, 2, 2) mesh, four ranks on the one
+# card: attention heads and experts split over model, the expert weights gathered over data; global batch 2 x
 # 4096 (1 x 4096 a data rank, shared along model), the published capacity
 # factor, bf16, remat, hier: TP_STEPS steps of train().  Step 1 is held in
 # f64 compute against one process on (1, 1, 1) with 2 microbatches (each a
@@ -364,7 +399,7 @@ INPOD_TIMEOUT = 900
 # reassociation (the split sums over model) flips an assignment at a
 # near-tie now and then, which moves late layers' gradients by 1e-3 of
 # their norm; in f64 such a tie is ~1e9 times rarer
-TP_MESH, TP_LAYERS, TP_BATCH, TP_STEPS = (1, 2, 2), 8, 2, 3
+TP_MESH, TP_LAYERS, TP_BATCH, TP_STEPS = (1, 2, 2), 4, 2, 3
 TP_CAPACITY, TP_LOSS_TOL, TP_CHECK_DTYPE = 1.25, 1e-4, "float64"
 TP_TIMEOUT = 600
 # phase 23: the trainer on four pods.  A ring order can change only with
@@ -1658,6 +1693,25 @@ def data_batch(cfg, batch: int, seq: int, dev, step: int = 0) -> dict:
                                  seed=1), step, dev)
 
 
+def train_batch(cfg, batch: int, seq: int, dev, step: int = 0) -> dict:
+    """Batch ``step`` of a training run: ``data_batch``'s labels, and its
+    tokens, or for a frames frontend ``embeds`` (B, S, d) in their place;
+    for a model with an image context also ``img`` (B, N_img, d); both
+    drawn from the step's seed (``launch.serve.make_frames``,
+    ``make_image``)."""
+    import torch
+
+    from repro_torch.launch.serve import make_frames, make_image
+
+    out = data_batch(cfg, batch, seq, dev, step)
+    if cfg.frontend != "token":
+        del out["tokens"]
+        out["embeds"] = torch.from_numpy(make_frames(cfg, batch, seq, seed=step)).to(dev)
+    if cfg.n_img_tokens:
+        out["img"] = torch.from_numpy(make_image(cfg, batch, seq, seed=step)).to(dev)
+    return out
+
+
 def counted(counters: dict, run):
     """``run()`` with every kernel count set to 0 just before; returns its
     result and the counts just after."""
@@ -1737,14 +1791,14 @@ def train_grad_checks(tag, cfg, dev, counters, kernels) -> None:
     from repro_torch.models.model import init_params
     from repro_torch.train.train_step import TrainConfig, grads_and_loss
 
-    if cfg.moe is not None:
+    if any(blk.ffn == "moe" for blk in cfg.block_list()):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
         print(f"{tag} gradient checks at capacity factor {cfg.moe.capacity_factor} (nothing "
               "drops); (b) and (c) train at the published one")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     f32 = TrainConfig(compute_dtype=torch.float32)
-    batch = data_batch(cfg, GRAD_BATCH, GRAD_SEQ, dev)
+    batch = train_batch(cfg, GRAD_BATCH, GRAD_SEQ, dev)
     mixer = "" if kernels is None else ("rwkv" if kernels[0] == "wkv6" else "rglru")
     n_kernel = sum(blk.mixer == mixer for blk in cfg.block_list())
 
@@ -1813,13 +1867,15 @@ def counts_text(counts: dict) -> str:
 
 
 def profile_step(run) -> tuple[float | None, dict]:
-    """Device time of ``run()`` by kernel name (ms) from torch.profiler."""
+    """Device time of ``run()`` by kernel name (ms) from torch.profiler,
+    which records the device's activity only: the host's events of a step
+    of ~10^5 launches took longer to gather than the step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     by_name = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 for e in prof.key_averages()
@@ -1828,14 +1884,53 @@ def profile_step(run) -> tuple[float | None, dict]:
     return (total if total > 0 else None), by_name
 
 
-def run_training(tag, arch, n_layers, batch, seq, dev, counters, kernels) -> dict:
-    """Phases 15-17: ``arch`` at full width and ``n_layers`` layers, each
-    check on an emptied card: (a) and (d), then (b) TRAIN_STEPS steps of
-    ``launch.train.train()`` at batch x seq (the counted main path), then (c)
-    FALL_STEPS steps on one repeated batch, the last one profiled."""
+def drive_steps(cfg, tcfg, batch: int, seq: int, dev) -> list[dict]:
+    """TRAIN_STEPS steps of ``build_train_step`` on ``train_batch``'s batches
+    0, 1, ... from parameters drawn from seed 0, for a model whose inputs
+    ``train()``'s pipeline cannot feed; one record a step as ``train()``
+    keeps them: the loss and ``dt``, the host time of the step ending in a
+    synchronise, its batch drawn outside it."""
     import torch
 
+    from repro_torch.models.model import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.train_step import build_train_step
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt = adamw_init(params, tcfg.optim)
+    step = build_train_step(cfg, tcfg, dev)
+    hist = []
+    for i in range(TRAIN_STEPS):
+        b = train_batch(cfg, batch, seq, dev, step=i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(params, opt, b)["loss"]
+        torch.cuda.synchronize()
+        hist.append({"loss": float(loss), "dt": time.perf_counter() - t0})
+    return hist
+
+
+def cut_config(arch: str, n_layers: int | None, **changes):
+    """``arch``'s published config and the one trained: its first
+    ``n_layers`` layers (all with None), with ``changes``."""
     from repro_torch.configs.registry import get_config
+
+    full = get_config(arch)
+    if n_layers is not None:
+        changes["n_layers"] = n_layers
+    return dataclasses.replace(full, **changes), full
+
+
+def run_training(tag, cfg, full, batch, seq, dev, counters, kernels) -> dict:
+    """Phases 15-17 and 27-29: ``cfg`` (``full`` cut in depth) at full
+    width, each check on an emptied card: (a) and (d), then (b)
+    TRAIN_STEPS steps at batch x seq (the counted main path) through
+    ``launch.train.train()``, or through ``build_train_step``
+    (``drive_steps``) for a model that reads frames or an image context,
+    which ``train()``'s pipeline does not yield, then (c) FALL_STEPS steps
+    on one repeated batch, the last one profiled."""
+    import torch
+
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.train import train
     from repro_torch.models.model import init_params, param_count
@@ -1843,22 +1938,25 @@ def run_training(tag, arch, n_layers, batch, seq, dev, counters, kernels) -> dic
     from repro_torch.train.train_step import TrainConfig, build_train_step
 
     memory_line(tag, "start")
-    full = get_config(arch)
-    cfg = full if n_layers is None else dataclasses.replace(full, n_layers=n_layers)
     n = param_count(cfg)
-    print(f"{tag} {arch} training at full width, {cfg.n_layers} of {full.n_layers} layers "
+    print(f"{tag} {full.name} training at full width, {cfg.n_layers} of {full.n_layers} layers "
           f"({', '.join(b.mixer + '+' + b.ffn for b in cfg.block_list()[:3])}"
           f"{', ...' if cfg.n_layers > 3 else ''}): {n:,} parameters; f32 params + grads + m + v "
           f"= 16 B each = {16 * n / 1e9:.1f} GB (the whole model: {16 * param_count(full) / 1e9:.1f} GB)")
     train_grad_checks(tag, cfg, dev, counters, kernels)
 
-    # ---- (b) the main path: train() at the full shape, every count read
+    # ---- (b) the main path at the full shape, every count read
     tcfg = TrainConfig()            # the reference's defaults: bf16 compute, lr 3e-4 after 100 steps
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+    tokens_only = cfg.frontend == "token" and not cfg.n_img_tokens
     torch.cuda.reset_peak_memory_stats()
-    hist, counts = counted(counters, lambda: train(cfg, tcfg, data, TRAIN_STEPS, seed=0,
-                                                   device=dev))
+    if tokens_only:
+        data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=0)
+        hist, counts = counted(counters, lambda: train(cfg, tcfg, data, TRAIN_STEPS, seed=0,
+                                                       device=dev))
+    else:
+        hist, counts = counted(counters, lambda: drive_steps(cfg, tcfg, batch, seq, dev))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    card_gb = torch.cuda.get_device_properties(dev).total_memory / 1e9
     n_mixer = 0
     want = {name: 0 for name in counters}
     if kernels is not None:
@@ -1872,12 +1970,16 @@ def run_training(tag, arch, n_layers, batch, seq, dev, counters, kernels) -> dic
         fail(f"{cfg.name} (b): losses {losses}")
     steady = statistics.median(r["dt"] for r in hist[1:])
     tokens = batch * seq
-    print(f"{tag} (b) train(): {TRAIN_STEPS} steps at batch {batch} x {seq}, {tcfg.compute_dtype} "
-          f"compute, remat: losses {', '.join(f'{x:.4f}' for x in losses)}; step times "
-          f"{', '.join('%.1f' % (r['dt'] * 1e3) for r in hist)} ms (the first warms up); "
-          f"steady {steady * 1e3:.1f} ms/step, {tokens / steady:.0f} tokens/s; peak device "
-          f"memory {peak_gb:.2f} GB; launches {counts_text(counts)} "
-          f"(per step: forward + remat recompute {2 * n_mixer}, backward {n_mixer})")
+    unit = "tokens" if cfg.frontend == "token" else "frames"
+    print(f"{tag} (b) {'train()' if tokens_only else 'build_train_step'}: {TRAIN_STEPS} steps at "
+          f"batch {batch} x {seq}"
+          f"{' with an image context of ' + str(cfg.n_img_tokens) if cfg.n_img_tokens else ''}, "
+          f"{tcfg.compute_dtype} compute, remat: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"step times {', '.join('%.1f' % (r['dt'] * 1e3) for r in hist)} ms (the first warms "
+          f"up); steady {steady * 1e3:.1f} ms/step, {tokens / steady:.0f} {unit}/s; peak device "
+          f"memory {peak_gb:.2f} GB of the card's {card_gb:.2f} GB; launches "
+          f"{counts_text(counts)} (per step: forward + remat recompute {2 * n_mixer}, "
+          f"backward {n_mixer})")
     torch.cuda.empty_cache()
 
     # ---- (c) the loss falls on one repeated batch; the last step profiled.
@@ -1888,7 +1990,7 @@ def run_training(tag, arch, n_layers, batch, seq, dev, counters, kernels) -> dic
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     opt = adamw_init(params, ctcfg.optim)
     step = build_train_step(cfg, ctcfg, dev)
-    one = data_batch(cfg, batch, seq, dev)
+    one = train_batch(cfg, batch, seq, dev)
     fall, walls = [], []
     for _ in range(FALL_STEPS - 1):
         torch.cuda.synchronize()
@@ -1923,6 +2025,117 @@ def run_training(tag, arch, n_layers, batch, seq, dev, counters, kernels) -> dic
     memory_line(tag, "end")
     return {"launches": counts, "step_ms": steady * 1e3, "tokens_per_s": tokens / steady,
             "peak_gb": peak_gb, "device_ms": dev_ms, "wall_ms": wall_ms, "kernel_ms": kernel_ms}
+
+
+def run_cross_hazard(tag: str, cfg, dev) -> dict:
+    """Phase 29's last part: ``cfg`` (the cross block alone) forward at 1 x
+    HAZARD_SEQ tokens over an image context of ``cfg.n_img_tokens`` from
+    the seed, bf16 compute on f32 weights, under ``torch.no_grad()``.
+    ``attention_any`` takes ``flash_attention`` there with kv chunks of
+    ``_largest_chunk(n_img, 1024)``, 1 for a prime n_img (asserted).  Its
+    wall time, its device time (torch.profiler), the kv chunk steps
+    counted (one PV product of ``flash_attention`` a step, seen in a run of
+    their own through a ``TorchFunctionMode``; gated against the steps the
+    chunks give), and what a training step would keep for them, reckoned:
+    autograd holds each step's f32 accumulator (B, Hkv, G, q_chunk, Dv)
+    for ``acc * corr``."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    from repro_torch.launch.serve import make_image, make_prompts
+    from repro_torch.models import layers
+    from repro_torch.models.model import forward, init_params
+
+    class PVSteps(TorchFunctionMode):
+        """Counts flash_attention's PV products, one a kv chunk step."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.einsum and args and args[0] == "bhgqk,bkhd->bhgqd":
+                self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    s, n_img = HAZARD_SEQ, cfg.n_img_tokens
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    batch = {"tokens": torch.from_numpy(make_prompts(cfg, 1, s, seed=3)).to(dev),
+             "img": torch.from_numpy(make_image(cfg, 1, s, seed=3)).to(dev)}
+
+    def run():
+        return forward(cfg, params, batch, compute_dtype=torch.bfloat16)[0]
+
+    q_chunk, kv_chunk = layers._largest_chunk(s, 1024), layers._largest_chunk(n_img, 1024)
+    calls, steps = [], PVSteps()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        with spying(layers, "flash_attention", lambda q, k, v, **kw: calls.append(
+                (q.shape[1], k.shape[1], kw["q_chunk"], kw["kv_chunk"], kw["causal"]))):
+            run()                                           # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms, by_name = profile_step(run)
+        with steps:
+            run()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want_steps = (s // q_chunk) * (n_img // kv_chunk)
+    heads, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    acc_bytes = n_kv * (heads // n_kv) * q_chunk * hd * 4
+    print(f"{tag} the cross block's forward at 1 x {s} over a {n_img}-token image, bf16, no grad: "
+          f"flash_attention calls by (Sq, Sk, q_chunk, kv_chunk, causal) {calls}; {steps.n:,} kv "
+          f"chunk steps counted ({s // q_chunk} x {n_img // kv_chunk} = {want_steps:,} expected); "
+          f"{wall_ms:.1f} ms wall, "
+          + (f"{dev_ms:.2f} ms of device time (busy {dev_ms / wall_ms:.1%})" if dev_ms
+             else "device time not measured")
+          + f"; peak device memory {peak_gb:.2f} GB")
+    if dev_ms:
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"    {ms:9.3f} ms  {name[:100]}")
+    print(f"{tag} a training step at that length would keep one f32 accumulator of "
+          f"(1, {n_kv}, {heads // n_kv}, {q_chunk}, {hd}) = {acc_bytes / 1e6:.1f} MB for each of "
+          f"its {want_steps:,} steps in the block's recompute: {want_steps * acc_bytes / 1e9:.1f} GB "
+          f"(reckoned, not attempted)")
+    if (calls != [(s, n_img, q_chunk, kv_chunk, False)] or steps.n != want_steps
+            or not bool(torch.isfinite(out).all()) or out.shape != (1, s, cfg.vocab_size)):
+        fail(f"{cfg.name} at 1 x {s}: flash_attention calls {calls}, {steps.n} kv steps "
+             f"(expected {want_steps}), logits {tuple(out.shape)} finite "
+             f"{bool(torch.isfinite(out).all())}")
+    del params, batch, out
+    torch.cuda.empty_cache()
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "steps": steps.n,
+            "acc_gb": want_steps * acc_bytes / 1e9, "peak_gb": peak_gb}
+
+
+def run_new_training(dev, counters) -> None:
+    """Phases 27-29, each on the emptied card: training deepseek-v3-671b's
+    dense prefix, hubert-xlarge and llama-3.2-vision-90b's cross block at
+    full width (``run_training``), then the cross block's long forward
+    (``run_cross_hazard``)."""
+    import torch
+
+    from repro_torch.configs.base import Block
+
+    # deepseek-v3's three dense blocks peak at ~70 GB allocated, which fixed
+    # segments left by the earlier phases fragment past the card's 85 GB:
+    # from here on the allocator grows segments
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    for tag, (cfg, full), (b, s_len) in (
+            ("[27]", cut_config(MLA_ARCH, MLA_TRAIN_LAYERS), MLA_TRAIN_SHAPE),
+            ("[28]", cut_config(AUDIO_ARCH, None), AUDIO_TRAIN_SHAPE),
+            ("[29]", cut_config(VLM_ARCH, 1, blocks_pattern=(Block("attn_cross", "dense"),)),
+             VLM_TRAIN_SHAPE)):
+        torch.cuda.empty_cache()
+        t_phase = time.perf_counter()
+        run_training(tag, cfg, full, b, s_len, dev, counters, None)
+        if cfg.n_img_tokens:
+            run_cross_hazard(tag, cfg, dev)
+        torch.cuda.empty_cache()
+        print(f"  {tag} took {time.perf_counter() - t_phase:.1f} s; "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
 
 
 def run_demo(dev, counters) -> None:
@@ -3288,9 +3501,9 @@ def main() -> None:
     for tag, arch, layers, (b, s_len), kernels in (
             ("[15]", RWKV, 8, (2, 4096), ("wkv6", "wkv6_backward")),
             ("[16]", RG, 3, (1, 4096), ("rglru_scan", "rglru_scan_backward")),
-            ("[17]", MOE, None, (1, 4096), None)):
+            ("[17]", MOE, 16, (1, 4096), None)):
         t_phase = time.perf_counter()
-        res = run_training(tag, arch, layers, b, s_len, dev, counters, kernels)
+        res = run_training(tag, *cut_config(arch, layers), b, s_len, dev, counters, kernels)
         if kernels is not None:
             for name in kernels:
                 entries[name]["train_launches"] = res["launches"][name]
@@ -3342,6 +3555,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         print(f"  {tag} took {time.perf_counter() - t_phase:.1f} s; "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated")
+
+    # ---- 27-29. training deepseek-v3's dense prefix, hubert-xlarge and
+    # llama-3.2-vision's cross block, each on the emptied card
+    run_new_training(dev, counters)
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

@@ -358,19 +358,25 @@ def _attend_tp(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_heads: list[
 
 
 def _gqa_tp(p: Params, x: torch.Tensor, ctx, *, n_heads: int, n_kv: int, head_dim: int,
-            causal: bool, window: int, rope_theta: float) -> torch.Tensor:
-    """``gqa_apply``'s training forward in a ``model``-parallel region:
+            causal: bool, window: int, rope_theta: float,
+            kv_source: torch.Tensor | None = None) -> torch.Tensor:
+    """``gqa_apply``'s uncached forward in a ``model``-parallel region:
     this rank's q heads (:func:`tp_heads`) with the kv heads they read,
-    its rows of ``wo``, and the sum of the ranks' parts over ``model``."""
+    its rows of ``wo``, and the sum of the ranks' parts over ``model``.
+    With ``kv_source``, cross-attention as the reference's ``_attend_tp``
+    lays it out: k and v projected from the context, which enters the
+    region as ``x`` does, no rotation."""
     b, s, _ = x.shape
     q_heads, kv_heads = tp_heads(n_heads, n_kv, ctx.model_size, ctx.model_coord)
     xr = ctx.enter(x)
+    src = xr if kv_source is None else ctx.enter(kv_source)
     q = _head_slots(p["wq"], xr, q_heads, head_dim)
-    k = _head_slots(p["wk"], xr, kv_heads, head_dim)
-    v = _head_slots(p["wv"], xr, kv_heads, head_dim)
-    pos = torch.arange(s, device=x.device)
-    q = apply_rope(q, pos, rope_theta)
-    k = apply_rope(k, pos, rope_theta)
+    k = _head_slots(p["wk"], src, kv_heads, head_dim)
+    v = _head_slots(p["wv"], src, kv_heads, head_dim)
+    if kv_source is None:
+        pos = torch.arange(s, device=x.device)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
     out = _attend_tp(q, k, v, q_heads, causal=causal, window=window).to(x.dtype)
     rows = p["wo"]["w"].view(n_heads, head_dim, -1)[[h for h in q_heads if h >= 0]]
     y = out.reshape(b, s, -1) @ rows.reshape(out.shape[2] * head_dim, -1).to(x.dtype)
@@ -416,28 +422,26 @@ def gqa_apply(
     earlier query of the same write still needs: the JAX package computes
     that case wrongly (ROADMAP, fault 5).
 
-    Without a cache, under a distribution context with ``model`` above 1
-    (``dist.context``), the heads are split over ``model`` as the
-    reference pins them there: each rank computes its block of
-    :func:`pad_heads_for_tp`'s layout and its rows of ``wo``, and the
-    ranks' parts are summed over ``model`` in f32."""
+    Without a cache, or with ``kv_source``, under a distribution context
+    with ``model`` above 1 (``dist.context``), the heads are split over
+    ``model`` as the reference pins them there: each rank computes its
+    block of :func:`pad_heads_for_tp`'s layout and its rows of ``wo``, and
+    the ranks' parts are summed over ``model`` in f32."""
     ctx = dist_context.current()
-    if kv_source is not None:
-        if ctx is not None and ctx.model_size > 1:
-            raise NotImplementedError(
-                "cross-attention with heads split over model is not ported yet")
-        return _cross_attend(p, x, kv_source, n_heads=n_heads, n_kv=n_kv,
-                             head_dim=head_dim), None
-    if cache is None and ctx is not None and ctx.model_size > 1:
-        return _gqa_tp(p, x, ctx, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim, causal=causal,
-                       window=window, rope_theta=rope_theta), None
+    if (cache is None or kv_source is not None) and ctx is not None and ctx.model_size > 1:
+        return _gqa_tp(p, x, ctx, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+                       causal=causal and kv_source is None, window=window,
+                       rope_theta=rope_theta, kv_source=kv_source), None
     b, s, _ = x.shape
+    src = x if kv_source is None else kv_source
     q = dense_apply(p["wq"], x).reshape(b, s, n_heads, head_dim)
-    k = dense_apply(p["wk"], x).reshape(b, s, n_kv, head_dim)
-    v = dense_apply(p["wv"], x).reshape(b, s, n_kv, head_dim)
+    k = dense_apply(p["wk"], src).reshape(b, src.shape[1], n_kv, head_dim)
+    v = dense_apply(p["wv"], src).reshape(b, src.shape[1], n_kv, head_dim)
 
     new_cache = None
-    if cache is not None:
+    if kv_source is not None:
+        out = attention_any(q, k, v, causal=False)
+    elif cache is not None:
         clen = cache["len"]
         pos = clen + torch.arange(s, device=x.device)
         q = apply_rope(q, pos, rope_theta)
@@ -480,19 +484,6 @@ def gqa_apply(
     out = out.to(x.dtype)
     y = dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
     return y, new_cache
-
-
-def _cross_attend(p: Params, x: torch.Tensor, src: torch.Tensor, *, n_heads: int, n_kv: int,
-                  head_dim: int) -> torch.Tensor:
-    """``gqa_apply``'s cross-attention: queries from ``x``, keys and values
-    from ``src``, as the reference's ``gqa_apply`` with ``kv_source``."""
-    b, s, _ = x.shape
-    n = src.shape[1]
-    q = dense_apply(p["wq"], x).reshape(b, s, n_heads, head_dim)
-    k = dense_apply(p["wk"], src).reshape(b, n, n_kv, head_dim)
-    v = dense_apply(p["wv"], src).reshape(b, n, n_kv, head_dim)
-    out = attention_any(q, k, v, causal=False).to(x.dtype)
-    return dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
 
 
 def gqa_init_cache(b: int, max_len: int, n_kv: int, head_dim: int, *,

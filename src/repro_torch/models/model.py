@@ -321,10 +321,11 @@ def param_count(cfg: ModelConfig) -> int:
 def region_leaves(cfg: ModelConfig) -> frozenset[str]:
     """The keys (``tree.leaf_paths``) of the leaves that ``forward`` reads
     inside a ``model``-parallel region under a distribution context with
-    ``model`` above 1 (``dist.context``): every self-attention block's
-    projections and every MoE block's router and experts, not its shared
-    experts (MLA runs outside any such region, as in the reference).  Each ``model`` rank's gradient of such a leaf is a part of
-    the leaf's."""
+    ``model`` above 1 (``dist.context``): every self- and cross-attention
+    block's projections and every MoE block's router and experts, not its
+    shared experts (MLA runs outside any such region, as in the
+    reference).  Each ``model`` rank's gradient of such a leaf is a part
+    of the leaf's."""
     blocks = cfg.block_list()
     keys = set()
     for key, _ in leaf_paths(init_params(cfg, None, "meta")):
@@ -332,7 +333,7 @@ def region_leaves(cfg: ModelConfig) -> frozenset[str]:
         if parts[0] != "layers":
             continue
         blk = blocks[int(parts[1])]
-        if ((parts[2] == "mixer" and blk.mixer in ("attn", "attn_local"))
+        if ((parts[2] == "mixer" and blk.mixer in ("attn", "attn_local", "attn_cross"))
                 or (parts[2] == "ffn" and blk.ffn == "moe" and parts[3] != "shared")):
             keys.add(key)
     return frozenset(keys)

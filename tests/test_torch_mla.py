@@ -139,7 +139,9 @@ def test_cache_overflow_is_refused(weights):
 
 def test_mla_ignores_the_model_split(weights):
     """MLA runs whole under a context that splits ``model``: the reference
-    computes it outside any model-parallel region."""
+    computes it outside any model-parallel region.  Its training step on
+    meshes that split ``model`` is held against the reference's in
+    ``test_torch_mla_mesh.py``."""
     cfg, port, _ = weights
     x = torch.from_numpy(_x(cfg, 8, 5))
     want, _ = mla.mla_apply(port, x, n_heads=cfg.n_heads, mla=cfg.mla)
@@ -151,10 +153,12 @@ def test_mla_ignores_the_model_split(weights):
 def test_region_leaves_take_no_mla_leaf():
     """Under ``model`` > 1 MLA runs whole on every rank, so none of its
     leaves is summed over ``model``; the MoE experts (not the shared one)
-    are, and a cross-attention block (which refuses the split) is not."""
+    are, and so are a cross-attention block's projections, which split
+    their heads over ``model`` as self-attention's do."""
     keys = model.region_leaves(get_smoke_config(ARCH))
     assert keys and not any("/mixer/" in k for k in keys)
     assert all("/ffn/" in k and "/shared/" not in k for k in keys)
     vision = model.region_leaves(get_smoke_config("llama-3.2-vision-90b"))
     assert any(k.startswith("layers/0/mixer/") for k in vision)
-    assert not any(k.startswith("layers/4/") for k in vision)
+    assert {k for k in vision if k.startswith("layers/4/")} == {
+        f"layers/4/mixer/{w}/w" for w in ("wq", "wk", "wv", "wo")}

@@ -2,7 +2,8 @@
 dense decoders: minitron-8b's smoke config and demo-20m, the small model of
 ``examples/train_100m.py``.  ``test_torch_train_rwkv6.py``,
 ``test_torch_train_recurrentgemma.py`` and ``test_torch_train_moe.py`` use
-the trajectory helpers defined here.
+the trajectory helpers defined here, as does ``test_torch_train_frames_image.py``
+(``batches`` draws the frames and image contexts of those models).
 
 Both sides start from the same weights (a JAX tree carried over by
 ``params_from_jax``) and see the same ``SyntheticLM`` batches.  The
@@ -62,12 +63,22 @@ def jax_tree(jcfg, seed=0):
 
 
 def batches(cfg, seq, batch, seed=0):
+    """``SyntheticLM``'s batches; for a frames frontend ``embeds`` (B, S, d)
+    in place of the tokens, and for a model with an image context ``img``
+    (B, N_img, d), both N(0, 1) from a numpy generator of ``seed``."""
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch,
                                   seed=seed))
     want = jax_pipeline.SyntheticLM(jax_pipeline.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch, seed=seed))
     out = [data.batch(i) for i in range(STEPS)]
     np.testing.assert_array_equal(out[-1]["tokens"], want.batch(STEPS - 1)["tokens"])
+    rng = np.random.default_rng(seed + 1)
+    for b in out:
+        if cfg.frontend != "token":
+            del b["tokens"]
+            b["embeds"] = rng.normal(0, 1, (batch, seq, cfg.d_model)).astype(np.float32)
+        if cfg.n_img_tokens:
+            b["img"] = rng.normal(0, 1, (batch, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)
     return out
 
 

@@ -21,9 +21,8 @@ import torch
 
 from repro.configs.registry import get_smoke_config as jax_get_smoke_config
 from repro_torch.configs.registry import get_smoke_config
-from repro_torch.dist.context import DistContext, distribution
 from repro_torch.launch import serve as serve_mod
-from repro_torch.models import layers, model
+from repro_torch.models import model
 from repro_torch.models.convert import params_from_jax
 from repro_torch.train.train_step import TrainConfig, build_serve_step
 from test_torch_dense_serve import (
@@ -114,16 +113,6 @@ def test_decode_step_moves_the_image_to_the_device():
         want, _ = model.forward(cfg, params, {"tokens": toks[:, -1:], **img}, cache=cache,
                                 compute_dtype=torch.float32)
     assert torch.equal(tok, want[:, -1].argmax(-1).to(torch.int32))
-
-
-def test_cross_attention_refuses_a_model_split():
-    cfg = get_smoke_config(ARCH)
-    p = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")["layers"][4]["mixer"]
-    x = torch.zeros(B, 3, cfg.d_model)
-    with distribution(DistContext({"model": 2}, {"model": 0})):
-        with pytest.raises(NotImplementedError, match="cross-attention"):
-            layers.gqa_apply(p, x, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                             head_dim=cfg.resolved_head_dim, kv_source=x)
 
 
 def test_serve_on_cpu_with_the_seeds_image():
