@@ -80,14 +80,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and 16 of 32 layers (27.0 GB of state; cut for the run's time limit),
    batch 1 x 4096 through the plain
    flash attention and MoE dispatch, every kernel's count 0;
-18. demo-100m (``examples/train_100m.py``): 100 steps of ``train()`` at
-   batch 8 x 256, the loss must fall; the same run saved at step 50 and
+18. demo-100m (``examples/train_100m.py``): 40 steps of ``train()`` at
+   batch 8 x 256, the loss must fall; the same run saved at step 20 and
    resumed by a fresh ``train()`` must match it bit for bit;
 19. rwkv6-7b across two pods: two ranks spawned on the card, joined over
    gloo (``launch.mesh.run_local_ranks``), each training at full width and
    2 layers on its 1 x 4096 rows of a 2 x 4096 global batch, bf16 compute,
-   remat: 4 steps of ``train()`` with geococo (density 0.10, chunk 2048,
-   min_leaf_size 4096, relay ring (1, 0)), then 2 with flat, the WKV6
+   remat: 2 steps of ``train()`` with geococo (density 0.10, chunk 2048,
+   min_leaf_size 4096, relay ring (1, 0)), then 1 with flat, the WKV6
    counts read around each run in each rank (2 x 2 forward, 2 backward a
    step).  Gated: finite losses; every pod's parameters bit-identical after
    every step (``pods_agree``, from per-leaf checksums); the wire values
@@ -98,7 +98,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    geococo at density 1.0 equal to flat from the same state.  Printed per
    step: compute, the exchange's device and host (staging + gloo) parts,
    AdamW, the bytes handed to gloo (the whole masked tensors: gloo's
-   all-reduce sums dense values on the host);
+   all-reduce sums dense values on the host).  The same two ranks then
+   compute phase 21's yardstick on their (2, 1, 1) mesh;
 20. geococo's chunked top-k (``topk_select``) over phase 9's gradient share,
    one process, no exchange: its device time by CUDA events against its
    bound (16 B an element), beside the white-data filter's;
@@ -106,8 +107,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    over gloo, each holding its blocks of the parameters, of AdamW's m and v
    and of the residuals (``data`` splits dim 0 of every 2-d leaf), at full
    width and 2 layers on its 1 x 4096 rows of a 4 x 4096 global batch,
-   bf16 compute, remat: 3 steps of ``train()`` with hier (relay ring
-   (1, 0)), then 3 with geococo at phase 19's settings, the WKV6 counts
+   bf16 compute, remat: 1 step of ``train()`` with hier (relay ring
+   (1, 0)), then 2 with geococo at phase 19's settings, the WKV6 counts
    read around each run in each rank.  Gated: finite losses, the same on
    every rank; the blocks of every pod group bit-identical after every
    step, and the whole leaves of every pod (the step raises otherwise);
@@ -116,19 +117,19 @@ Phases, each of which fails the run (nonzero exit, no result line):
    reference's ``shard_factor`` form); after one geococo step every
    filtered residual block nonzero and different between the pods;
    geococo at density 1.0 equal to hier from the same state, bit for bit;
-   one hier step against one on (2, 1, 1) with 2 microbatches (two ranks,
-   run first) from the same state and batch, each gradient leaf within 4 x
+   one hier step against one on (2, 1, 1) with 2 microbatches (phase 19's
+   two ranks) from the same state and batch, each gradient leaf within 4 x
    its noise floor (the batch's rows reversed) or 1e-3 of its norm.
    Printed per step and rank: compute, the in-pod gathers and
    reduce-scatters and the pod exchange (device and host parts), AdamW,
    the bytes to gloo in-pod and across the pods; peak memory a rank; hier's
    bytes across the pod against phase 19's flat on (2, 1, 1);
 22. granite-moe-3b-a800m on a (1, 2, 2) mesh: four ranks spawned on the
-   card, at full width and 4 of 32 layers on a 2 x 4096 global batch (1 x
+   card, at full width and 2 of 32 layers on a 2 x 4096 global batch (1 x
    4096 a data rank, shared along model), the published capacity factor
    1.25, bf16 compute, remat, hier: each rank computes 12 of the 24 q
    heads (4 of the 8 kv heads) and 20 of the 40 experts, summed over
-   model, on expert weights gathered over data; 3 steps of ``train()``,
+   model, on expert weights gathered over data; 2 steps of ``train()``,
    every kernel's count read around them in each rank.  Gated: finite
    losses, the same on every rank; the whole leaves of the pod
    bit-identical after every step (the step raises otherwise); every
@@ -148,16 +149,16 @@ Phases, each of which fails the run (nonzero exit, no result line):
    spawned on the card as a (4, 1, 1) mesh over gloo, rwkv6-7b at full
    width and 1 of 32 layers on 1 x 4096 rows a rank of a 4 x 4096 global
    batch, bf16 compute, remat, hier, under a ``ControlPlane`` over the
-   reference test's 4-node square for two rounds, then the square with its
-   (0, 1) and (2, 3) links spiked; 6 steps, an asynchronous checkpoint at
-   step 4 (after the ring change) into a temporary directory, a
-   ``FaultInjected`` on every rank before step 6, rolled back to step 4 and
-   replayed; the WKV6 counts read around ``run()``.  Gated: the
+   reference test's 4-node square for one round, then the square with its
+   (0, 1) and (2, 3) links spiked; 5 steps, an asynchronous checkpoint at
+   step 3 (after the ring change) into a temporary directory, a
+   ``FaultInjected`` on every rank before step 5, rolled back to step 3 and
+   step 4 replayed; the WKV6 counts read around ``run()``.  Gated: the
    ``RelayOrderChanged`` orders (0, 1, 2, 3) then ``relay_ring_order`` of
    the spiked square, (0, 2, 1, 3), and at least 2 step rebuilds; every
    rank the same ring, event list and records before every step; the pods
    agree after every step; the replayed step's loss and gradient norm
-   equal its first run's bit for bit, and the run ends at step 6; WKV6 2
+   equal its first run's bit for bit, and the run ends at step 5; WKV6 2
    forward and 1 backward a layer, step and rank, the replay included;
    finite losses that fall.  Printed per step and rank: the ring the step
    ran on, compute, the exchange (device and host), AdamW, the bytes to
@@ -197,8 +198,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    GB of f32 state; from here on the allocator grows its segments),
    batch 1 x 4096 (MLA through flash, chunks of 1024): the checks of
    phase 17 through ``launch.train.train()``, every kernel's count 0;
-28. hubert-xlarge training at full width and all 48 layers (1,260,698,880
-   parameters), batch 1 x 4096 frames drawn from the seed (non-causal
+28. hubert-xlarge training at full width and 16 of its 48 layers (cut for
+   the run's time limit), batch 1 x 4096 frames drawn from the seed (non-causal
    flash), 504 codebook targets: the checks of phase 17 through
    ``build_train_step`` (``train()``'s pipeline yields tokens only), every
    kernel's count 0;
@@ -210,12 +211,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    1601-token image, which takes ``flash_attention`` with one key a chunk
    (1601 is prime): its wall and device time, the kv chunk steps counted
    (4 x 1601 = 6,404 expected, gated) and the f32 accumulators a training
-   step would keep for them, reckoned (not attempted).
+   step would keep for them, reckoned (not attempted);
+30. serving on a (1, 2, 2) mesh: four ranks of one gloo group on the card,
+   each with the whole f32 weights, its rows of the batch and its part of
+   the cache (``build_serve_step(mesh=)``): (a) granite-moe-3b-a800m at full
+   width and 16 of 32 layers, 8 x 512 + 32 (heads and experts split over model, the
+   cache whole along its sequence), then served through ``serve(mesh=)`` at
+   the published 1.25 in bf16, and its no-drop copy's bf16 decode (the
+   weights as serve() casts them) held against one process' within 4 x a
+   floor or 2e-2 of the largest logit; (b) minitron-8b at 4 of 32 layers and (c)
+   deepseek-v3-671b at 1 of 61 (an MLA block), 2 prompts of 8192 tokens
+   prefilled in chunks and 8 decode steps on a cache of 8200 positions split
+   along its sequence over model.  Each part's decode steps in f32 against
+   one process on the card fed the same tokens, within 4 x a floor or 1e-4
+   of the largest logit, failed on purpose in (b) and (c) by zeroed
+   model-rank-1 shards; every kernel's count 0; the cache leaves at
+   ``cache_specs``' local shapes; the model ranks of a row bit-identical.
+   Printed: each part's prefill and decode times, the bytes to gloo a step
+   (the merge's apart), rank 0's device time a step, peak memory a rank.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13 and 15-29 each on an empty card after the phase
+released, and phases 11, 13 and 15-30 each on an empty card after the phase
 before.  Each phase prints its wall time.
 
 The line before the last lists the kernels as JSON; the last line is
@@ -233,6 +251,7 @@ import json
 import math
 import statistics
 import subprocess
+import tempfile
 import sys
 import time
 from pathlib import Path
@@ -276,13 +295,15 @@ AUDIO_BF16_LAYERS = 4
 # deepseek-v3-671b's MLA_TRAIN_LAYERS dense-prefix blocks (one MoE block
 # alone holds 11.27e9 expert parameters, 180 GB of state) at 1 x 4096: two
 # peaked at 60.97 GB of the card's 85.02 (NVIDIA H100 80GB HBM3, 700 W),
-# which leaves room for the third; hubert-xlarge whole at 1 x 4096 frames;
+# which leaves room for the third; hubert-xlarge at 1 x 4096 frames and
+# AUDIO_TRAIN_LAYERS of its 48 layers (whole, its phase took 46.2 to 51.2 s
+# of a run that must end in 1200 s; a step's time goes with the depth);
 # llama-3.2-vision-90b's cross block alone (five layers, one period, would
 # be 102 GB) at 8 x 512, where 512 x 1601 scores stay dense.  Then that block's forward at 1 x
 # HAZARD_SEQ, through flash with kv chunks of 1 (1601 is prime): measured
 # without grad; a training step there would keep an f32 accumulator per
 # chunk step
-MLA_TRAIN_LAYERS = 3
+MLA_TRAIN_LAYERS, AUDIO_TRAIN_LAYERS = 3, 16
 MLA_TRAIN_SHAPE, AUDIO_TRAIN_SHAPE, VLM_TRAIN_SHAPE = (1, 4096), (1, 4096), (8, 512)
 HAZARD_SEQ = 4096
 
@@ -365,7 +386,7 @@ TRAIN_STEPS, FALL_STEPS, FALL_LR = 4, 5, 1e-5
 TRAIN_GRAD_TOL = 1e-3
 FLOOR_CAP = 0.1
 # phase 18: demo-100m, cut and resumed
-DEMO_STEPS, DEMO_CUT = 100, 50
+DEMO_STEPS, DEMO_CUT = 40, 20
 
 
 # phase 19: rwkv6-7b at full width across two pods, both ranks on the one
@@ -373,7 +394,7 @@ DEMO_STEPS, DEMO_CUT = 100, 50
 # invisible), global batch 2 x 4096 (1 x 4096 a pod), the reference's
 # geococo defaults with the relay ring (1, 0)
 POD_LAYERS, POD_BATCH, POD_SEQ = 2, 2, 4096
-POD_GEO_STEPS, POD_FLAT_STEPS = 4, 2
+POD_GEO_STEPS, POD_FLAT_STEPS = 2, 1
 POD_SYNC = dict(density=0.10, chunk=2048, min_leaf_size=4096, ring_order=(1, 0))
 POD_TIMEOUT = 600
 # phase 21: rwkv6-7b at full width and 2 layers on a (2, 2, 1) mesh, four
@@ -382,11 +403,12 @@ POD_TIMEOUT = 600
 # 4 x 4096 (1 x 4096 a rank): hier on the relay ring (1, 0), then geococo at
 # POD_SYNC; one hier step held against one on (2, 1, 1) with 2 microbatches
 INPOD_MESH, INPOD_BATCH = (2, 2, 1), 4
-INPOD_HIER_STEPS, INPOD_GEO_STEPS = 3, 3
+INPOD_HIER_STEPS, INPOD_GEO_STEPS = 1, 2
 INPOD_TIMEOUT = 900
-# phase 22: granite-moe-3b-a800m at full width and 4 of its 32 layers (for
-# the run's time limit: at 8 this phase took 127.5 s of a 1086 s run on the
-# NVIDIA H100 80GB HBM3, 700 W) on a (1, 2, 2) mesh, four ranks on the one
+# phase 22: granite-moe-3b-a800m at full width and 2 of its 32 layers (for
+# the run's time limit: at 8 this phase took 127.5 s of a 1086 s run, at 4
+# and 3 steps 91.3 s of a 1026 s run, on the NVIDIA H100 80GB HBM3, 700 W)
+# on a (1, 2, 2) mesh, four ranks on the one
 # card: attention heads and experts split over model, the expert weights gathered over data; global batch 2 x
 # 4096 (1 x 4096 a data rank, shared along model), the published capacity
 # factor, bf16, remat, hier: TP_STEPS steps of train().  Step 1 is held in
@@ -399,7 +421,7 @@ INPOD_TIMEOUT = 900
 # reassociation (the split sums over model) flips an assignment at a
 # near-tie now and then, which moves late layers' gradients by 1e-3 of
 # their norm; in f64 such a tie is ~1e9 times rarer
-TP_MESH, TP_LAYERS, TP_BATCH, TP_STEPS = (1, 2, 2), 4, 2, 3
+TP_MESH, TP_LAYERS, TP_BATCH, TP_STEPS = (1, 2, 2), 2, 2, 2
 TP_CAPACITY, TP_LOSS_TOL, TP_CHECK_DTYPE = 1.25, 1e-4, "float64"
 TP_TIMEOUT = 600
 # phase 23: the trainer on four pods.  A ring order can change only with
@@ -408,17 +430,18 @@ TP_TIMEOUT = 600
 # and 1 of its 32 layers (16 B a parameter of state, ~16 GB a rank), 1 x
 # TRAINER_SEQ rows a rank of a 4 x TRAINER_SEQ global batch, bf16, remat,
 # hier.  The
-# control plane sees the reference test's 4-node square for two rounds,
+# control plane sees the reference test's 4-node square for one round (the
+# test holds it two; one spares a step of ~12 s of the run's time limit),
 # then the square with its (0, 1) and (2, 3) links spiked
 # (tests/test_control_plane.py:33-49): the ring is (0, 1, 2, 3) from step 2
-# and (0, 2, 1, 3) from step 5.  A checkpoint lands at step 4, after the
-# change; a FaultInjected on every rank before step 6 rolls back to it, so
-# step 5 replays under the ring of its first run.  AdamW at its defaults,
+# and (0, 2, 1, 3) from step 4.  A checkpoint lands at step 3, after the
+# change; a FaultInjected on every rank before step 5 rolls back to it, so
+# step 4 replays under the ring of its first run.  AdamW at its defaults,
 # as in phases 19 and 21: a warm-up of 100 steps keeps the first steps'
 # learning rate small (with 6e-4 after 2 warm-up steps the loss rose from
 # 11.79 to 15.04 in 6 steps at this width).
 TRAINER_MESH, TRAINER_LAYERS, TRAINER_BATCH = (4, 1, 1), 1, 4
-TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_FAULT_AT = 6, 4, 5
+TRAINER_STEPS, TRAINER_CKPT_EVERY, TRAINER_FAULT_AT = 5, 3, 4
 # the sequence is not cut: at 4096 a rank peaked at 17.54 to 18.61 GB, 74 GB
 # of the card's 80 for the four ranks, and at 2048 at the same: the peak is
 # the exchange's (state, gradient, the ring's held messages), not the
@@ -427,7 +450,50 @@ TRAINER_SEQ = 4096
 TRAINER_TIMEOUT = 900
 SQUARE_MS = ((0.0, 10.0, 14.0, 10.0), (10.0, 0.0, 10.0, 14.0),
              (14.0, 10.0, 0.0, 10.0), (10.0, 14.0, 10.0, 0.0))
-SPIKE_MS, SQUARE_ROUNDS = 100.0, 2
+SPIKE_MS, SQUARE_ROUNDS = 100.0, 1
+# phase 30: serving on a (1, 2, 2) mesh, four ranks of one gloo group on the
+# card, each holding the whole f32 weights (serving writes none; the
+# reference's p_shard would spread them over data).  (a) granite-moe-3b-a800m
+# at full width and 16 of 32 layers, phase 14's 8 x 512 + 32: a data rank's 4
+# rows, a model rank's 12 of 24 q heads, 4 of 8 kv heads and 20 of 40
+# experts, the 544-position cache whole along its sequence; its gate in f32
+# compute on the no-drop copy (capacity factor 5.0, as phase 13), then
+# served through serve(mesh=) at the published 1.25 in bf16, which casts the
+# weights; with them, the no-drop copy's bf16 decode from the f32-prefilled
+# cache, gated against one process' the same way (DECODE_TOL["bfloat16"]).
+# (b)
+# minitron-8b at full width and 4 of 32 layers, 2 prompts of 8192 tokens and
+# 8 decode steps on a cache of 8200 positions, split over model (4100 a
+# model rank, all 8 kv heads); (c) deepseek-v3-671b at full width and 1 of
+# 61 layers (a dense-prefix MLA block), as (b) on its latent cache.  The
+# prompts of (b) and (c) go through the cached step in chunks: in one piece
+# a row's prefill would hold 8.4 GB of logits and 8.6 GB of f32 scores; (c)
+# at 512, where a rank's MLA scores over 128 heads are 2.1 GB a chunk of
+# 1024.  Each part's MESH_STEPS decode steps, in f32, against one process
+# on the card fed the same tokens (run first, its logits kept on the host):
+# a rank's rows' logits within FLOOR_MULT x a floor (that one process over
+# each data rank's rows alone, against all rows) or DECODE_TOL; (b) and (c)
+# must fail it on a decode whose model-rank-1 shard of every layer's cache
+# is zeroed.  The depth cuts of (b) and (c) are for the card's 80 GB with
+# four ranks on it; (a)'s, to 16 layers, is for the run's time limit (whole,
+# the script took 977 to 1026 s of its 1200 on the NVIDIA H100 80GB HBM3,
+# 700 W).
+MESH_SERVE = (1, 2, 2)
+MESH_SERVE_TIMEOUT = 900
+MESH_STEPS = 8
+MESH_NO_DROP = 5.0
+SPLIT_BATCH, SPLIT_PROMPT, SPLIT_STEPS = 2, 8192, 8
+MESH_PARTS = (
+    {"tag": "(a)", "arch": MOE, "layers": 16, "batch": BATCH, "prompt": PROMPT_LEN,
+     "max_len": PROMPT_LEN + GEN_LEN, "chunk": None, "capacity": MESH_NO_DROP, "zero": False,
+     "serve": True},
+    {"tag": "(b)", "arch": DENSE, "layers": 4, "batch": SPLIT_BATCH, "prompt": SPLIT_PROMPT,
+     "max_len": SPLIT_PROMPT + SPLIT_STEPS, "chunk": 1024, "capacity": None, "zero": True,
+     "serve": False},
+    {"tag": "(c)", "arch": MLA_ARCH, "layers": 1, "batch": SPLIT_BATCH, "prompt": SPLIT_PROMPT,
+     "max_len": SPLIT_PROMPT + SPLIT_STEPS, "chunk": 512, "capacity": None, "zero": True,
+     "serve": False},
+)
 # the records every rank holds alike (not its host times, nor its counts of
 # its own nonzero values)
 SHARED_RECORD = ("step", "loss", "grad_norm", "lr", "pods_agree", "dense_values",
@@ -2034,8 +2100,8 @@ def run_cross_hazard(tag: str, cfg, dev) -> dict:
     ``attention_any`` takes ``flash_attention`` there with kv chunks of
     ``_largest_chunk(n_img, 1024)``, 1 for a prime n_img (asserted).  Its
     wall time, its device time (torch.profiler), the kv chunk steps
-    counted (one PV product of ``flash_attention`` a step, seen in a run of
-    their own through a ``TorchFunctionMode``; gated against the steps the
+    counted (one PV product of ``flash_attention`` a step, seen in the
+    warm-up run through a ``TorchFunctionMode``; gated against the steps the
     chunks give), and what a training step would keep for them, reckoned:
     autograd holds each step's f32 accumulator (B, Hkv, G, q_chunk, Dv)
     for ``acc * corr``."""
@@ -2071,16 +2137,14 @@ def run_cross_hazard(tag: str, cfg, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         with spying(layers, "flash_attention", lambda q, k, v, **kw: calls.append(
-                (q.shape[1], k.shape[1], kw["q_chunk"], kw["kv_chunk"], kw["causal"]))):
-            run()                                           # warm-up
+                (q.shape[1], k.shape[1], kw["q_chunk"], kw["kv_chunk"], kw["causal"]))), steps:
+            run()                                           # warm-up, its steps counted
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
         dev_ms, by_name = profile_step(run)
-        with steps:
-            run()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     want_steps = (s // q_chunk) * (n_img // kv_chunk)
     heads, n_kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
@@ -2125,7 +2189,7 @@ def run_new_training(dev, counters) -> None:
     torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     for tag, (cfg, full), (b, s_len) in (
             ("[27]", cut_config(MLA_ARCH, MLA_TRAIN_LAYERS), MLA_TRAIN_SHAPE),
-            ("[28]", cut_config(AUDIO_ARCH, None), AUDIO_TRAIN_SHAPE),
+            ("[28]", cut_config(AUDIO_ARCH, AUDIO_TRAIN_LAYERS), AUDIO_TRAIN_SHAPE),
             ("[29]", cut_config(VLM_ARCH, 1, blocks_pattern=(Block("attn_cross", "dense"),)),
              VLM_TRAIN_SHAPE)):
         torch.cuda.empty_cache()
@@ -2494,12 +2558,14 @@ def run_merge(ops, ref, counters: dict, dev, rows: int = YCSB_ROWS,
     return {"launches": launches, "wall_ms": wall, "main": main}
 
 
-def pod_rank(rank: int) -> dict:
+def pod_rank(rank: int, ref_dir: str) -> dict:
     """Phase 19, in one of two spawned processes, both on cuda:0: the main
     path (train() with geococo, then with flat) with the WKV6 counts read
     around each run, then the step-level checks (residuals after one step;
-    geococo at density 1.0 against flat from the same state).  Returns what
-    the parent gates across the ranks."""
+    geococo at density 1.0 against flat from the same state); last, on the
+    same (2, 1, 1) mesh, phase 21's yardstick (``inpod_reference_rank``,
+    its gradient written to ``ref_dir``), which spares phase 21 a spawn of
+    its own.  Returns what the parent gates across the ranks."""
     import torch
 
     from repro_torch.configs.registry import get_config
@@ -2554,6 +2620,11 @@ def pod_rank(rank: int) -> dict:
     step(params, opt, batch)
     out["dense_vs_flat"] = max(float((p.detach().cpu() - q).abs().max())
                                for p, q in zip(leaves(params), after_dense))
+    del params, opt, step, after_dense
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["inpod_ref"] = inpod_reference_rank(rank, ref_dir)
+    out["inpod_ref"]["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -2574,11 +2645,11 @@ def shared_card():
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = before
 
 
-def run_pods() -> float:
+def run_pods(ref_dir: str) -> tuple[float, list]:
     """Phase 19: rwkv6-7b across two pods on the card (two ranks of one gloo
     group, spawned by ``launch.mesh.run_local_ranks``), gated here across
     the ranks.  Returns the bytes flat handed to gloo a rank in its last
-    step."""
+    step, and phase 21's yardstick by rank (its gradient in ``ref_dir``)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.dist.collectives import SyncConfig, estimate_sync_bytes
     from repro_torch.dist.grouping import group_like_reference
@@ -2599,7 +2670,7 @@ def run_pods() -> float:
           f"{len(grouped)} leaves in the reference's layout; geococo {POD_SYNC}")
     try:
         with shared_card():
-            ranks = run_local_ranks(pod_rank, 2, timeout=POD_TIMEOUT)
+            ranks = run_local_ranks(pod_rank, 2, (ref_dir,), timeout=POD_TIMEOUT)
     except (RuntimeError, TimeoutError) as err:
         fail(f"[19] {err}")
     for name, strategy in (("geococo", SyncConfig("geococo", **POD_SYNC)),
@@ -2627,7 +2698,8 @@ def run_pods() -> float:
                                                                ranks[1][name]["history"]]:
             fail(f"[19] {name}: the ranks report different pod-mean losses")
         losses = ", ".join(f"{r['loss']:.4f}" for r in ranks[0][name]["history"])
-        print(f"[19] {name}: {steps} steps of train(), pod-mean losses {losses}; "
+        print(f"[19] {name}: {steps} step{'s' * (steps > 1)} of train(), pod-mean losses "
+              f"{losses}; "
               f"parameters bit-identical across the pods after every step; launches a rank "
               f"{counts_text(ranks[0][name]['launches'])} ({2 * POD_LAYERS} forward, "
               f"{POD_LAYERS} backward a step); wire values counted = the wire model "
@@ -2661,7 +2733,7 @@ def run_pods() -> float:
           f"operands, so the gate is 0)")
     if diff != 0.0:
         fail(f"[19] geococo at density 1.0 differs from flat by {diff:g}")
-    return ranks[0]["flat"]["history"][-1]["bytes_sent"]
+    return ranks[0]["flat"]["history"][-1]["bytes_sent"], [got["inpod_ref"] for got in ranks]
 
 
 def inpod_config():
@@ -2677,7 +2749,7 @@ def inpod_data(cfg):
 
 
 def inpod_reference_rank(rank: int, out_dir: str) -> dict:
-    """Phase 21's yardstick, in one of two spawned processes on cuda:0: the
+    """Phase 21's yardstick, in one of phase 19's two ranks on cuda:0: the
     synced gradient of one hier step on (2, 1, 1) with 2 microbatches (the
     rows each (2, 2, 1) rank computes on, one microbatch each), from the
     seed-0 parameters and the first global batch, and the same with the
@@ -2796,13 +2868,12 @@ def inpod_rank(rank: int, ref_dir: str) -> dict:
     return out
 
 
-def run_inpod(flat_bytes: float) -> None:
+def run_inpod(flat_bytes: float, ref: list, ref_dir: str) -> None:
     """Phase 21: rwkv6-7b on a (2, 2, 1) mesh on the card (four ranks of one
-    gloo group), after its yardstick on (2, 1, 1) (two ranks), gated here
-    across the ranks.  ``flat_bytes``: what flat handed to gloo a rank a
-    step in phase 19, on (2, 1, 1)."""
-    import tempfile
-
+    gloo group), gated here across the ranks.  ``flat_bytes``: what flat
+    handed to gloo a rank a step in phase 19, on (2, 1, 1); ``ref``: the
+    yardstick on (2, 1, 1) by rank, which phase 19's ranks computed, its
+    gradient in ``ref_dir``."""
     import torch
 
     from repro_torch.dist.collectives import SyncConfig, estimate_sync_bytes
@@ -2827,12 +2898,10 @@ def run_inpod(flat_bytes: float) -> None:
           f"{len(replicated)} whole: {sum(replicated.values()):,} values); global batch "
           f"{INPOD_BATCH} x {POD_SEQ} (1 x {POD_SEQ} a rank), bf16 compute, remat; hier on the "
           f"ring {POD_SYNC['ring_order']}, geococo {POD_SYNC}")
-    with shared_card(), tempfile.TemporaryDirectory(prefix="inpod-") as ref_dir:
+    print(f"[21] the (2, 1, 1) yardstick (hier, 2 microbatches of 1 x {POD_SEQ}), computed by "
+          f"phase 19's two ranks in {max(r['seconds'] for r in ref):.1f} s")
+    with shared_card():
         try:
-            t0 = time.perf_counter()
-            ref = run_local_ranks(inpod_reference_rank, 2, (ref_dir,), timeout=POD_TIMEOUT)
-            print(f"[21] the (2, 1, 1) yardstick (2 ranks, hier, 2 microbatches of 1 x {POD_SEQ}) "
-                  f"in {time.perf_counter() - t0:.1f} s")
             ranks = run_local_ranks(inpod_rank, n_ranks, (ref_dir,), timeout=INPOD_TIMEOUT)
         except (RuntimeError, TimeoutError) as err:
             fail(f"[21] {err}")
@@ -2863,7 +2932,7 @@ def run_inpod(flat_bytes: float) -> None:
         peaks = ", ".join(f"{got[name]['peak_gb']:.2f}" for got in ranks)
         if any(one != losses[0] for one in losses):
             fail(f"[21] {name}: the ranks report different mean losses")
-        print(f"[21] {name}: {steps} steps of train(), mean losses "
+        print(f"[21] {name}: {steps} step{'s' * (steps > 1)} of train(), mean losses "
               f"{', '.join(f'{v:.4f}' for v in losses[0])}; within every pod group the blocks "
               f"bit-identical after every step, and within every pod the whole leaves; launches a "
               f"rank {counts_text(ranks[0][name]['launches'])}; wire values counted = the "
@@ -2952,9 +3021,9 @@ def kernel_counters() -> dict:
             "whitedata_filter": filter_ops.whitedata_filter, "crdt_merge": merge_ops.crdt_merge}
 
 
-def tp_yardstick_rank(rank: int, out_dir: str) -> dict:
-    """Phase 22's yardstick, in one spawned process on cuda:0 (the mesh
-    (1, 1, 1)): the gradient of step 1 from the seed-0 parameters and the
+def tp_yardstick(out_dir: str) -> dict:
+    """Phase 22's yardstick, in this process on cuda:0 (the mesh (1, 1,
+    1); a process of its own would add its start and CUDA set-up): the gradient of step 1 from the seed-0 parameters and the
     first global batch with 2 microbatches, one a ``data`` rank's row, in
     ``TP_CHECK_DTYPE`` compute (each microbatch routes its 4096 tokens
     alone, as the reference's expert parallelism routes a ``data``
@@ -2976,6 +3045,7 @@ def tp_yardstick_rank(rank: int, out_dir: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
     cfg = tp_config()
     cdt = getattr(torch, TP_CHECK_DTYPE)
     tcfg = TrainConfig(compute_dtype=cdt, microbatches=TP_BATCH)
@@ -3065,9 +3135,9 @@ def tp_rank(rank: int, ref_dir: str) -> dict:
 
 def run_tp() -> None:
     """Phase 22: granite-moe-3b-a800m on a (1, 2, 2) mesh on the card (four
-    ranks of one gloo group), after its yardstick on (1, 1, 1) (one
+    ranks of one gloo group), after its yardstick on (1, 1, 1) (this
     process), gated here across the ranks."""
-    import tempfile
+    import torch
 
     from repro_torch.dist.context import DistContext
     from repro_torch.launch.mesh import run_local_ranks
@@ -3089,8 +3159,9 @@ def run_tp() -> None:
     with shared_card(), tempfile.TemporaryDirectory(prefix="tp-") as ref_dir:
         try:
             t0 = time.perf_counter()
-            ref = run_local_ranks(tp_yardstick_rank, 1, (ref_dir,), timeout=TP_TIMEOUT)[0]
-            print(f"[22] the (1, 1, 1) yardstick (one process, {TP_CHECK_DTYPE}, {TP_BATCH} "
+            ref = tp_yardstick(ref_dir)
+            torch.cuda.empty_cache()
+            print(f"[22] the (1, 1, 1) yardstick (this process, {TP_CHECK_DTYPE}, {TP_BATCH} "
                   f"microbatches of "
                   f"1 x {POD_SEQ}) in {time.perf_counter() - t0:.1f} s, peak device memory "
                   f"{ref['peak_gb']:.2f} GB")
@@ -3342,6 +3413,384 @@ def run_trainer() -> None:
     check_trainer(ranks, cfg, kernels=True)
 
 
+def mesh_part_config(part: dict):
+    """Phase 30's config of ``part``: its arch at full width (at the smoke
+    size where ``part["smoke"]``, to rehearse on the CPU), cut to its
+    layers, at its capacity factor."""
+    from repro_torch.configs.registry import get_config, get_smoke_config
+
+    cfg = (get_smoke_config if part.get("smoke") else get_config)(part["arch"])
+    if part["layers"] is not None:
+        cfg = dataclasses.replace(cfg, n_layers=part["layers"])
+    if part["capacity"] is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                                capacity_factor=part["capacity"]))
+    return cfg
+
+
+def mesh_prefill(step, params, cache, prompts, chunk: int | None, rows: int | None = None):
+    """``prompts`` (host; on a mesh this rank's rows of ``rows``) through
+    the cached step in chunks; the last position's f32 logits and the
+    cache."""
+    chunk = chunk or prompts.shape[1]
+    for start in range(0, prompts.shape[1], chunk):
+        logits, cache = step.logits(params, cache, {"tokens": prompts[:, start:start + chunk]},
+                                    rows=rows)
+        last = logits[:, -1].float()
+        del logits
+    return last, cache
+
+
+def zero_split_shards(cache, coord: int, model_rank: int = 1):
+    """``cache`` with its layers' leaves split along the sequence zeroed on
+    ``model`` rank ``model_rank`` (this rank is at ``coord``)."""
+    import torch
+
+    if coord != model_rank:
+        return cache
+    return {"layers": [{k: torch.zeros_like(v) if isinstance(v, torch.Tensor) else v
+                        for k, v in layer.items()} if layer.get("seq_shards", 1) > 1 else layer
+                       for layer in cache["layers"]]}
+
+
+def mesh_decode(step, params, cache, tokens, zero_coord: int | None = None,
+                rows: int | None = None):
+    """Decode steps fed ``tokens[:, t]`` (host; on a mesh this rank's rows
+    of ``rows``), each step's last-position f32 logits of the rows on the
+    host, (rows, steps, vocab); with ``zero_coord`` (this rank's ``model``
+    coordinate) each step is fed a cache whose model-rank-1 shards are
+    zeroed."""
+    import torch
+
+    outs = []
+    for t in range(tokens.shape[1]):
+        if zero_coord is not None:
+            cache = zero_split_shards(cache, zero_coord)
+        logits, cache = step.logits(params, cache, {"tokens": tokens[:, t:t + 1]}, rows=rows)
+        outs.append(logits[:, -1].float().cpu())
+        del logits
+    return torch.stack(outs, 1), cache
+
+
+def mesh_reference(part: dict, dev) -> dict:
+    """Phase 30's yardstick of ``part``, one process on the card over the
+    whole cache: greedy from the prompts' prefill, MESH_STEPS decode steps
+    in f32; the tokens fed (rows, steps), the logits (host), and the noise
+    floor: the same over each data rank's rows alone against all rows.
+    With ``part["serve"]`` also the same steps in bf16 from the same
+    prefilled caches, the weights cast in place as ``serve()`` casts them
+    (``bf16_logits``, ``bf16_floor``)."""
+    import torch
+
+    from repro_torch.dist.sharding import batch_rows
+    from repro_torch.launch.serve import init_model, make_prompts
+    from repro_torch.models.model import cast_params_, init_cache
+    from repro_torch.train.train_step import TrainConfig, build_serve_step
+
+    cfg = mesh_part_config(part)
+    f32 = TrainConfig(compute_dtype=torch.float32)
+    params = init_model(cfg, f32, 0, dev)
+    prompts = torch.from_numpy(make_prompts(cfg, part["batch"], part["prompt"], seed=0))
+    step = build_serve_step(cfg, f32, kind="decode", device=dev)
+
+    def prefill(rows):
+        cache = init_cache(cfg, rows.stop - rows.start, part["max_len"], torch.float32, dev)
+        return mesh_prefill(step, params, cache, prompts[rows], part["chunk"])
+
+    t0 = time.perf_counter()
+    last, prefilled = prefill(slice(0, part["batch"]))
+    cache = prefilled           # a step writes a new cache: the prefilled one stays
+    tokens, logits = [last.argmax(-1).cpu()], []
+    for _ in range(MESH_STEPS):
+        got, cache = mesh_decode(step, params, cache, tokens[-1][:, None])
+        logits.append(got[:, 0])
+        tokens.append(got[:, 0].argmax(-1))
+    seconds = time.perf_counter() - t0
+    del cache
+    fed = torch.stack(tokens[:MESH_STEPS], 1).to(torch.int32)
+    want = torch.stack(logits, 1)
+    sizes = dict(zip(("pod", "data", "model"), MESH_SERVE))
+    floor, alone = 0.0, {}
+    for d in range(sizes["data"]):
+        rows = batch_rows(sizes, {"pod": 0, "data": d, "model": 0}, part["batch"])
+        alone[rows] = prefill(rows)[1]
+        got, _ = mesh_decode(step, params, alone[rows], fed[rows])
+        floor = max(floor, max(_rel(got[:, t], want[rows, t]) for t in range(MESH_STEPS)))
+    out = {"tokens": fed, "logits": want, "floor": floor, "seconds": seconds}
+    if part["serve"]:
+        cast_params_(params, torch.bfloat16)
+        bf16 = build_serve_step(cfg, TrainConfig(compute_dtype=torch.bfloat16), kind="decode",
+                                device=dev)
+        want16, _ = mesh_decode(bf16, params, prefilled, fed)
+        floor16 = 0.0
+        for rows, cache in alone.items():
+            got, _ = mesh_decode(bf16, params, cache, fed[rows])
+            floor16 = max(floor16, max(_rel(got[:, t], want16[rows, t])
+                                       for t in range(MESH_STEPS)))
+        out.update(bf16_logits=want16, bf16_floor=floor16)
+    del params, prefilled, alone
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_part_rank(part: dict, mesh, dev, tokens) -> dict:
+    """Phase 30's ``part`` on this rank: its rows of the prompts prefilled
+    and ``tokens`` decoded in f32 on its part of the cache, the logits
+    (host); the counts of the steps' distribution context; whether its cache
+    leaves have ``cache_specs``' local shapes; with ``part["zero"]`` the
+    decode again from the prefilled cache with model rank 1's shards zeroed;
+    with ``part["serve"]`` then ``serve(mesh=)`` at the published capacity
+    factor in bf16 (which casts the weights), and with the weights so cast
+    the decode again in bf16 from the prefilled cache (``bf16_logits``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.device import synchronize
+    from repro_torch.dist.sharding import batch_rows, local_shape
+    from repro_torch.launch.serve import init_model, make_prompts, mesh_counts, serve
+    from repro_torch.models.model import init_cache
+    from repro_torch.train.train_step import (TrainConfig, build_serve_step, cache_specs,
+                                              init_local_cache)
+    cfg = mesh_part_config(part)
+    f32 = TrainConfig(compute_dtype=torch.float32)
+    params = init_model(cfg, f32, 0, dev)
+    prompts_np = make_prompts(cfg, part["batch"], part["prompt"], seed=0)
+    b = part["batch"]
+    own = batch_rows(mesh.shape, mesh.coords, b)
+    tokens = tokens[own]
+    step = build_serve_step(cfg, f32, kind="decode", device=dev, mesh=mesh)
+    cache = init_local_cache(cfg, part["batch"], part["max_len"], mesh.shape, torch.float32, dev)
+    whole = init_cache(cfg, part["batch"], part["max_len"], torch.float32, "meta")
+    specs = cache_specs(whole, mesh.shape)
+    shapes_ok = all(
+        tuple(layer[k].shape) == local_shape(w[k].shape, sp[k], mesh.shape)
+        for layer, w, sp in zip(cache["layers"], whole["layers"], specs["layers"])
+        for k in w if isinstance(w[k], torch.Tensor))
+    split = sorted({key for layer in cache["layers"] if layer.get("seq_shards", 1) > 1
+                    for key, v in layer.items() if isinstance(v, torch.Tensor)})
+    synchronize(dev)
+    dist.barrier()              # the ranks start the timed part together
+    t0 = time.perf_counter()
+    _, cache = mesh_prefill(step, params, cache, torch.from_numpy(prompts_np[own]),
+                            part["chunk"], b)
+    synchronize(dev)
+    t1 = time.perf_counter()
+    prefill_counts = mesh_counts(step.ctx)
+    step.ctx.reset()
+    logits, _ = mesh_decode(step, params, cache, tokens, rows=b)
+    synchronize(dev)
+    out = {"logits": logits, "prefill_s": t1 - t0, "decode_s": time.perf_counter() - t1,
+           "prefill_counts": prefill_counts, "decode_counts": mesh_counts(step.ctx),
+           "shapes_ok": shapes_ok, "split": split,
+           "cache_shapes": [tuple(v.shape) for v in cache["layers"][0].values()
+                            if isinstance(v, torch.Tensor)]}
+    # two decode steps again, profiled on rank 0 (its device time a step);
+    # every rank runs them, so the collectives stay matched
+    def two_steps():
+        mesh_decode(step, params, cache, tokens[:, :2], rows=b)
+
+    if dev.type == "cuda" and not any(mesh.coords.values()):
+        dev_ms = profile_device(f"[30] {part['tag']} rank 0, two decode steps", two_steps, 1)
+        out["step_device_ms"] = None if dev_ms is None else dev_ms / 2
+    else:
+        two_steps()
+    if part["zero"]:
+        out["zeroed"], _ = mesh_decode(step, params, cache, tokens, mesh.coords["model"], b)
+    if part["serve"]:
+        published = mesh_part_config(dict(part, capacity=None))
+        dist.barrier()          # rank 0's profiler above delays it
+        res = serve(published, params, prompts_np, GEN_LEN, TrainConfig(), dev, None, mesh)
+        out["serve"] = {"prefill_s": res.prefill_s, "decode_s": res.decode_s,
+                        "counts": res.counts, "tokens": res.tokens,
+                        "capacity": published.moe.capacity_factor}
+        bf16 = build_serve_step(cfg, TrainConfig(compute_dtype=torch.bfloat16),
+                                kind="decode", device=dev, mesh=mesh)
+        out["bf16_logits"], _ = mesh_decode(bf16, params, cache, tokens, rows=b)
+    del cache
+    return out
+
+
+def serve_mesh_rank(rank: int, parts: tuple, fed: dict, device: str = "cuda") -> dict:
+    """Phase 30, in one of four spawned processes, all on the one card (or
+    the CPU, to rehearse), on the (1, 2, 2) mesh: every part in turn, every
+    kernel's count read around each and its peak memory."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(device, 0) if device == "cuda" else torch.device(device)
+    mesh, _ = make_mesh(MESH_SERVE, device=dev)
+    counters = kernel_counters()
+    out = {"coords": dict(mesh.coords), "parts": {}}
+    for part in parts:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        res, launches = counted(counters, lambda part=part: mesh_part_rank(
+            part, mesh, dev, fed[part["tag"]]))
+        res["launches"] = launches
+        res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda" else 0.0
+        out["parts"][part["tag"]] = res
+    return out
+
+
+def mesh_serve_text(part: dict, cfg) -> str:
+    """What a rank holds and computes in ``part``."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.dist.context import DistContext
+    from repro_torch.dist.grouping import leaf_specs
+    from repro_torch.dist.sharding import batch_rows, local_shape
+    from repro_torch.models.layers import tp_heads
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.tree import leaf_paths
+
+    sizes = dict(zip(("pod", "data", "model"), MESH_SERVE))
+    rows = batch_rows(sizes, {"pod": 0, "data": 0, "model": 0}, part["batch"])
+    specs = leaf_specs(cfg, sizes, "hier")
+    block = sum(math.prod(local_shape(leaf.shape, specs[key], sizes))
+                for key, leaf in leaf_paths(init_params(cfg, None, "meta")))
+    text = (f"{cfg.name}, {cfg.n_layers} of {get_config(part['arch']).n_layers} "
+            f"layers, {param_count(cfg):,} parameters ({4 * param_count(cfg) / 1e9:.2f} GB of "
+            f"f32 a rank, where the reference's p_shard (hier) would keep "
+            f"{4 * block / 1e9:.2f} GB a device); {part['batch']} prompts x {part['prompt']} "
+            f"tokens, a cache of {part['max_len']} positions; a rank takes "
+            f"{rows.stop - rows.start} rows")
+    if part["max_len"] >= 8192 and part["max_len"] % sizes["model"] == 0:
+        return text + (f" and {part['max_len'] // sizes['model']} positions of every head "
+                       f"(the sequence split over model)")
+    q_heads, kv_heads = tp_heads(cfg.n_heads, cfg.n_kv_heads, sizes["model"], 0)
+    text += (f", {sum(h >= 0 for h in q_heads)} of {cfg.n_heads} q heads against "
+             f"{len(set(kv_heads))} of {cfg.n_kv_heads} kv heads (every kv head cached)")
+    if cfg.moe is not None:
+        _, e_local, _ = DistContext(sizes, {}).experts(cfg.moe.n_experts)
+        text += f", {e_local} of {cfg.moe.n_experts} experts"
+    return text
+
+
+def run_serve_mesh(dev, parts=MESH_PARTS, device: str = "cuda") -> None:
+    """Phase 30: each part's yardstick in this process, then the four ranks
+    on the card (or the CPU, to rehearse), gated here across them."""
+    import torch
+
+    from repro_torch.dist.sharding import batch_rows
+    from repro_torch.launch.mesh import run_local_ranks
+
+    sizes = dict(zip(("pod", "data", "model"), MESH_SERVE))
+    refs = {}
+    for part in parts:
+        cfg = mesh_part_config(part)
+        print(f"[30] {part['tag']} {mesh_serve_text(part, cfg)}")
+        refs[part["tag"]] = mesh_reference(part, dev)
+        print(f"[30] {part['tag']} one process over the whole cache (the yardstick, f32): "
+              f"prefill and {MESH_STEPS} greedy steps in {refs[part['tag']]['seconds']:.1f} s; "
+              f"noise floor (each data rank's rows alone) {refs[part['tag']]['floor']:.3e}; "
+              f"row 0's greedy tokens {refs[part['tag']]['tokens'][0].tolist()}")
+        if part["serve"]:
+            print(f"[30] {part['tag']} the same steps in bf16 (the weights cast as serve() casts "
+                  f"them), one process: noise floor {refs[part['tag']]['bf16_floor']:.3e}")
+    fed = {tag: ref["tokens"] for tag, ref in refs.items()}
+    t0 = time.perf_counter()
+    with shared_card():
+        try:
+            ranks = run_local_ranks(serve_mesh_rank, math.prod(MESH_SERVE), (parts, fed, device),
+                                    timeout=MESH_SERVE_TIMEOUT)
+        except (RuntimeError, TimeoutError) as err:
+            fail(f"[30] {err}")
+    print(f"[30] the four ranks ran in {time.perf_counter() - t0:.1f} s (spawn and CUDA set-up "
+          f"included)")
+    for part in parts:
+        tag, ref = part["tag"], refs[part["tag"]]
+        limit = max(DECODE_TOL["float32"], FLOOR_MULT * ref["floor"])
+        worst, zeroed, by_rows = 0.0, 0.0, {}
+        for rank, got in enumerate(ranks):
+            res = got["parts"][tag]
+            if any(res["launches"].values()):
+                fail(f"[30] {tag} rank {rank}: the port's kernels launched {res['launches']}")
+            if not res["shapes_ok"]:
+                fail(f"[30] {tag} rank {rank}: cache leaves {res['cache_shapes']} are not "
+                     f"cache_specs' local shapes")
+            rows = batch_rows(sizes, got["coords"], part["batch"])
+            errs = [_rel(res["logits"][:, t], ref["logits"][rows, t]) for t in range(MESH_STEPS)]
+            worst = max(worst, max(errs))
+            if max(errs) > limit:
+                fail(f"[30] {tag} rank {rank}: decode logits {max(errs):.3e} x the largest from "
+                     f"one process' (> {limit:.3e}); by step {[f'{e:.2e}' for e in errs]}")
+            same = by_rows.setdefault((rows.start, rows.stop), res["logits"])
+            if not torch.equal(same, res["logits"]):
+                fail(f"[30] {tag} rank {rank}: the model ranks of rows {rows} hold other logits")
+            if part["zero"]:
+                zeroed = max(zeroed, max(_rel(res["zeroed"][:, t], ref["logits"][rows, t])
+                                         for t in range(MESH_STEPS)))
+        r0 = ranks[0]["parts"][tag]
+        split = f" (split along the sequence: {', '.join(r0['split'])})" if r0["split"] else ""
+        print(f"[30] {tag} decode vs one process: {worst:.3e} x the largest logit at worst "
+              f"({worst / limit:.2f} of the limit {limit:.3e}); the model ranks of each row "
+              f"bit-identical; every kernel's count 0; cache leaves at cache_specs' local "
+              f"shapes{split}")
+        if part["zero"]:
+            print(f"[30] {tag} decode fed model rank 1's shards zeroed: {zeroed:.3e} "
+                  f"({zeroed / limit:.1f} x the limit)")
+            if zeroed <= limit:
+                fail(f"[30] {tag}: the gate does not catch a zeroed model-rank-1 shard")
+        prefill_s = max(got["parts"][tag]["prefill_s"] for got in ranks)
+        step_ms = max(got["parts"][tag]["decode_s"] for got in ranks) / MESH_STEPS * 1e3
+        pre, dec = r0["prefill_counts"], r0["decode_counts"]
+        peaks = ", ".join(f"{got['parts'][tag]['peak_gb']:.2f}" for got in ranks)
+        print(f"[30] {tag} f32 on the mesh: prefill {prefill_s * 1e3:.1f} ms (slowest rank; "
+              f"model sums and merges {pre['tp_s'] * 1e3:.1f} ms, {pre['tp_bytes'] / 1e9:.4f} GB "
+              f"to gloo a rank, of which merges {pre['merge_bytes'] / 1e9:.4f}); decode "
+              f"{step_ms:.2f} ms a step (logits to the host each step), "
+              f"{dec['tp_bytes'] / MESH_STEPS / 1e6:.3f} MB to gloo a rank a step, of which "
+              f"merges {dec['merge_bytes'] / MESH_STEPS / 1e6:.3f} MB, "
+              f"{dec['tp_s'] / MESH_STEPS * 1e3:.2f} ms of sums and merges a step; peak device "
+              f"memory a rank {peaks} GB")
+        print_busy(f"[30] {tag} rank 0's decode step", r0.get("step_device_ms"),
+                   r0["decode_s"] / MESH_STEPS * 1e3)
+        if part["serve"]:
+            served = [got["parts"][tag]["serve"] for got in ranks]
+            if any(not (s["tokens"] == served[0]["tokens"]).all() for s in served):
+                fail(f"[30] {tag}: the ranks gathered different tokens")
+            gen = served[0]["tokens"]
+            vocab = mesh_part_config(part).vocab_size
+            if gen.shape != (part["batch"], GEN_LEN) or not ((gen >= 0) & (gen < vocab)).all():
+                fail(f"[30] {tag}: served tokens malformed: {gen.shape}")
+            one_a_row = served[::sizes["model"]]        # model coordinate 0 of each data rank
+
+            def drop_rate(when: str) -> float:
+                return (sum(s["counts"][when]["moe_dropped"] for s in one_a_row)
+                        / sum(s["counts"][when]["moe_assigned"] for s in one_a_row))
+
+            serve_step = max(s["decode_s"] for s in served) / (GEN_LEN - 1) * 1e3
+            print(f"[30] {tag} served through serve(mesh=) at capacity factor "
+                  f"{served[0]['capacity']}, bf16 decode: prefill "
+                  f"{max(s['prefill_s'] for s in served) * 1e3:.1f} ms (f32), decode "
+                  f"{serve_step:.2f} ms a step ({GEN_LEN - 1} steps, "
+                  f"{part['batch'] / serve_step * 1e3:.1f} tokens/s); "
+                  f"{served[0]['counts']['decode']['tp_bytes'] / (GEN_LEN - 1) / 1e6:.3f} MB to "
+                  f"gloo a rank a step, rank 0's sums "
+                  f"{served[0]['counts']['decode']['tp_s'] / (GEN_LEN - 1) * 1e3:.2f} ms a step; "
+                  f"MoE drop rate {drop_rate('prefill'):.4f} in the prefill, "
+                  f"{drop_rate('decode'):.4f} over the decode steps (each data rank routes its "
+                  f"rows alone); sample row {gen[0].tolist()}")
+            limit16 = max(DECODE_TOL["bfloat16"], FLOOR_MULT * ref["bf16_floor"])
+            worst16 = 0.0
+            for rank, got in enumerate(ranks):
+                res = got["parts"][tag]
+                rows = batch_rows(sizes, got["coords"], part["batch"])
+                errs = [_rel(res["bf16_logits"][:, t], ref["bf16_logits"][rows, t])
+                        for t in range(MESH_STEPS)]
+                worst16 = max(worst16, max(errs))
+                if max(errs) > limit16:
+                    fail(f"[30] {tag} rank {rank}: bf16 decode logits {max(errs):.3e} x the "
+                         f"largest from one process' (> {limit16:.3e}); by step "
+                         f"{[f'{e:.2e}' for e in errs]}")
+            print(f"[30] {tag} bf16 decode with serve()'s cast weights vs one process: "
+                  f"{worst16:.3e} x the largest logit at worst ({worst16 / limit16:.2f} of the "
+                  f"limit {limit16:.3e})")
+
+
 def run_topk(shapes, dev, filter_ms: float) -> dict:
     """Phase 20: geococo's chunked top-k (``topk_select``: f32 g + r, per
     chunk of 2048 the top 10% by magnitude, the sent values and the new
@@ -3518,10 +3967,12 @@ def main() -> None:
     run_demo(dev, counters)
     print(f"  [18] took {time.perf_counter() - t_phase:.1f} s")
 
-    # ---- 19. rwkv6-7b across two pods on the emptied card
+    # ---- 19. rwkv6-7b across two pods on the emptied card (its ranks also
+    # compute phase 21's yardstick on the same mesh, kept in inpod_dir)
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    flat_bytes = run_pods()
+    inpod_dir = tempfile.TemporaryDirectory(prefix="inpod-")
+    flat_bytes, inpod_ref = run_pods(inpod_dir.name)
     print(f"  [19] took {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 20. geococo's chunked top-k over phase 9's gradient share
@@ -3532,7 +3983,8 @@ def main() -> None:
     # ---- 21. rwkv6-7b on a (2, 2, 1) mesh on the emptied card
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    run_inpod(flat_bytes)
+    run_inpod(flat_bytes, inpod_ref, inpod_dir.name)
+    inpod_dir.cleanup()
     print(f"  [21] took {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 22. granite-moe-3b-a800m, heads and experts split over model, on the emptied card
@@ -3559,6 +4011,12 @@ def main() -> None:
     # ---- 27-29. training deepseek-v3's dense prefix, hubert-xlarge and
     # llama-3.2-vision's cross block, each on the emptied card
     run_new_training(dev, counters)
+
+    # ---- 30. serving on a (1, 2, 2) mesh of the emptied card
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    run_serve_mesh(dev)
+    print(f"  [30] took {time.perf_counter() - t_phase:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

@@ -15,12 +15,16 @@ sum on the same rows.  :meth:`DistContext.enter` opens it (the identity
 forward; its backward sums the cotangent over ``model`` in f32, the
 transpose of the reference's replicated input), :meth:`DistContext.exit`
 closes it (the sum over ``model`` in f32, the reference's
-``psum(out, "model")``; its backward the identity).  f32 is the least:
+``psum(out, "model")``; its backward the identity).  In a decode over a
+cache whose sequence is split over ``model``, :meth:`DistContext.gather_model`
+hands every rank the ranks' partial softmax sums
+(``models.layers.seq_split_attention``).  f32 is the least:
 under f64 compute the boundaries and sums stay f64 (:func:`wide`).  Each sum gathers the
 ranks' parts and adds them in rank order, so every rank of the group
-holds the same bits.  Their messages, and the MoE's count prefix over
-``data``, are counted apart from the in-pod gathers (``stats``: the
-``tp_bytes`` of a step; ``wall_s``: its ``tp_s``, ending in a device
+holds the same bits.  Their messages, the sequence split's gathers and
+the MoE's count prefix over ``data`` are counted apart from the in-pod
+gathers (``stats``: the ``tp_bytes`` of a step, of which ``merge_bytes``
+the sequence split's; ``wall_s``: its ``tp_s``, ending in a device
 synchronise).
 """
 
@@ -104,6 +108,7 @@ class DistContext:
         """Zero the counts: the regions' wire and the MoE's assignments."""
         self.stats = WireStats()
         self.wall_s = 0.0
+        self.merge_bytes = 0.0
         for group in self.groups.values():
             group.stats = self.stats
         self.moe_assigned = 0
@@ -136,6 +141,21 @@ class DistContext:
         """Close a region: the sum of the ranks' parts ``y`` over ``model``,
         whose cotangent reaches every part unchanged."""
         return _Exit.apply(y, self) if self.model_size > 1 else y
+
+    def gather_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Every ``model`` rank's ``x`` (all of one shape), stacked along a
+        new first axis in rank order (``x[None]`` without a ``model``
+        group); its bytes are counted in ``stats`` and ``merge_bytes``."""
+        group = self.groups.get("model")
+        if group is None:
+            return x[None]
+        t0 = time.perf_counter()  # lint: allow[wallclock] the regions' part
+        sent = self.stats.bytes_sent
+        every = group.all_gather(x.contiguous())
+        synchronize(x.device)
+        self.merge_bytes += self.stats.bytes_sent - sent
+        self.wall_s += time.perf_counter() - t0  # lint: allow[wallclock] the regions' part
+        return every
 
     def rows_before(self, counts: torch.Tensor) -> torch.Tensor:
         """The sum of ``counts`` over the pod's ``data`` ranks before this

@@ -27,8 +27,16 @@ import torch
 __all__ = ["param_specs", "shard_factor", "local_shape", "local_shard", "unshard",
            "fit_batch_axes", "batch_rows"]
 
-Spec = tuple[str | None, ...]
+Spec = tuple[str | tuple[str, ...] | None, ...]
 INPOD = ("data", "model")
+
+
+def _axis_size(axis: str | tuple[str, ...], sizes: Mapping[str, int]) -> int:
+    """The ranks along ``axis``: one axis name, or several (a batch dim
+    split over ``("pod", "data")``), whose sizes multiply."""
+    if isinstance(axis, str):
+        return sizes.get(axis, 1)
+    return math.prod(sizes.get(a, 1) for a in axis)
 
 
 def _leaf_spec(key: str, shape: tuple[int, ...], mesh_shape: Mapping[str, int],
@@ -60,14 +68,15 @@ def param_specs(params: Mapping[str, torch.Tensor], mesh_shape: Mapping[str, int
 
 def shard_factor(spec: Spec, sizes: Mapping[str, int]) -> int:
     """How many blocks ``spec`` cuts a leaf into on a mesh of ``sizes``."""
-    return math.prod(sizes.get(axis, 1) for axis in spec if axis is not None)
+    return math.prod(_axis_size(axis, sizes) for axis in spec if axis is not None)
 
 
 def local_shape(shape: Sequence[int], spec: Spec, sizes: Mapping[str, int]) -> tuple[int, ...]:
-    """The shape of one rank's block of a leaf of ``shape``."""
+    """The shape of one rank's block of a leaf of ``shape``; an entry of
+    ``spec`` names one axis or a tuple of them."""
     if not spec:
         return tuple(shape)
-    return tuple(n // sizes.get(axis, 1) if axis is not None else n
+    return tuple(n // _axis_size(axis, sizes) if axis is not None else n
                  for n, axis in zip(shape, spec))
 
 

@@ -38,7 +38,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from ..device import resolve_device
 
 __all__ = ["AXES", "COLLECTIVE_TIMEOUT_S", "Mesh", "check_mesh_shape", "make_mesh",
-           "run_local_ranks"]
+           "rank_coords", "run_local_ranks"]
 
 AXES = ("pod", "data", "model")
 COLLECTIVE_TIMEOUT_S = 600
@@ -101,12 +101,18 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...] = AXES,
     per_pod = math.prod(shape[1:])
     groups["inpod"], _ = dist.new_subgroups_by_enumeration(
         [list(range(p * per_pod, (p + 1) * per_pod)) for p in range(shape[0])])
-    rank = dist.get_rank()
-    coords, rest = {}, rank
-    for axis, size in reversed(list(zip(axes, shape))):
-        coords[axis], rest = rest % size, rest // size
-    mesh = Mesh(dict(zip(axes, shape)), {a: coords[a] for a in axes}, groups)
+    mesh = Mesh(dict(zip(axes, shape)), rank_coords(dist.get_rank(), dict(zip(axes, shape))),
+                groups)
     return mesh, groups
+
+
+def rank_coords(rank: int, shape: dict[str, int]) -> dict[str, int]:
+    """The coordinates of ``rank`` on a mesh of ``shape`` (axis -> size, in
+    the mesh's axis order): row-major, the last axis fastest."""
+    coords, rest = {}, rank
+    for axis, size in reversed(list(shape.items())):
+        coords[axis], rest = rest % size, rest // size
+    return {axis: coords[axis] for axis in shape}
 
 
 def _rank_main(fn: Callable, rank: int, world_size: int, store: str, timeout: float,

@@ -37,6 +37,9 @@ __all__ = [
     "attention_any",
     "pad_heads_for_tp",
     "tp_heads",
+    "seq_split_attention",
+    "split_offset",
+    "write_positions",
     "gqa_init",
     "gqa_apply",
     "gqa_init_cache",
@@ -378,9 +381,104 @@ def _gqa_tp(p: Params, x: torch.Tensor, ctx, *, n_heads: int, n_kv: int, head_di
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
     out = _attend_tp(q, k, v, q_heads, causal=causal, window=window).to(x.dtype)
+    return _wo_rows(p, out, q_heads, ctx, n_heads=n_heads, head_dim=head_dim)
+
+
+def _wo_rows(p: Params, out: torch.Tensor, q_heads: list[int], ctx, *, n_heads: int,
+             head_dim: int) -> torch.Tensor:
+    """The output projection of one rank's real q heads, ``out`` (B, S,
+    n_real, D) in the residual's dtype: its rows of ``wo``, summed over
+    ``model`` in f32 (the region's exit)."""
+    b, s = out.shape[:2]
     rows = p["wo"]["w"].view(n_heads, head_dim, -1)[[h for h in q_heads if h >= 0]]
-    y = out.reshape(b, s, -1) @ rows.reshape(out.shape[2] * head_dim, -1).to(x.dtype)
-    return ctx.exit(y.to(dist_context.wide(y.dtype))).to(x.dtype)
+    y = out.reshape(b, s, -1) @ rows.reshape(out.shape[2] * head_dim, -1).to(out.dtype)
+    return ctx.exit(y.to(dist_context.wide(y.dtype))).to(out.dtype)
+
+
+# ---------------------------------------------------------------------------
+# a cache whose sequence is split over the model axis
+# ---------------------------------------------------------------------------
+
+
+def write_positions(buf: torch.Tensor, new: torch.Tensor, start: int, lo: int = 0) -> None:
+    """Write ``new`` (B, s, ...), the entries of global positions ``start``
+    to ``start + s``, into ``buf`` (B, L, ...), which holds positions
+    ``lo`` to ``lo + L``: the part that falls there (a write that
+    straddles two shards of a split cache lands half in each), in place."""
+    first = max(start, lo)
+    end = min(start + new.shape[1], lo + buf.shape[1])
+    if first < end:
+        buf[:, first - lo:end - lo] = new[:, first - start:end - start].to(buf.dtype)
+
+
+def seq_split_attention(
+    q: torch.Tensor,                 # (B, Sq, Hq, D), every head
+    k: torch.Tensor,                 # (B, L, Hkv, D): this rank's positions lo .. lo + L
+    v: torch.Tensor,                 # (B, L, Hkv, Dv)
+    ctx,
+    *,
+    lo: int,
+    q_offset: int,
+    kv_len: int,
+    causal: bool = True,
+    window: int = 0,
+) -> torch.Tensor:
+    """``dense_attention`` over a cache whose sequence is split over
+    ``model``, each rank holding ``L`` positions from ``lo``: every rank
+    attends its own positions with ``flash_attention``'s online-softmax
+    arithmetic (the running max ``m``, sum ``l`` and output ``acc`` in f32,
+    masked scores at the finite ``_NEG``; a masked position's weight is an
+    exact 0, so a shard with no valid position yet contributes ``l = 0``
+    and ``acc = 0``), the ranks' ``(m, l, acc)`` are all-gathered over
+    ``model`` (``ctx.gather_model``) and merged in rank order, scaled to
+    the largest ``m``, and ``acc / max(l, 1e-30)`` ends it: every rank
+    holds the same bits.  The causal mask, ``window`` and ``kv_len`` are
+    taken at the rank's positions.  Returns (B, Sq, Hq, Dv) in the
+    promoted dtype of ``q`` and ``v``, as ``dense_attention`` does."""
+    b, sq, hq, d = q.shape
+    n_kv, dv = k.shape[2], v.shape[-1]
+    acc_dt = dist_context.wide(q.dtype)
+    qg, kk = _promoted(_expand_gqa(q, n_kv), k)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kk).to(acc_dt) / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device) + q_offset
+    kpos = torch.arange(k.shape[1], device=q.device) + lo
+    mask = (kpos < kv_len)[None, :].expand(sq, -1)
+    if causal:
+        mask = mask & (qpos[:, None] >= kpos[None, :])
+    if window > 0:
+        mask = mask & (qpos[:, None] - kpos[None, :] < window)
+    s = torch.where(mask, s, _NEG)
+    m = s.amax(dim=-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    del s
+    pp, vv = _promoted(p.to(q.dtype), v)
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", pp, vv).to(acc_dt)
+    parts = ctx.gather_model(torch.cat([m[..., None], p.sum(dim=-1)[..., None], acc], dim=-1))
+    del p, pp, acc
+    m_all = parts[..., 0].amax(dim=0)
+    l_all = torch.zeros_like(m_all)
+    acc_all = torch.zeros_like(parts[0, ..., 2:])
+    for part in parts:                  # rank order: the same bits on every rank
+        corr = torch.exp(part[..., 0] - m_all)
+        l_all = l_all + part[..., 1] * corr
+        acc_all = acc_all + part[..., 2:] * corr[..., None]
+    out = acc_all / torch.clamp_min(l_all[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dv).to(torch.promote_types(q.dtype,
+                                                                                  v.dtype))
+
+
+def split_offset(cache: Params, ctx, length: int) -> int:
+    """The first position this rank's part of a cache holds: 0 for a whole
+    cache, ``model`` coordinate x ``length`` for one split over ``model``
+    in ``cache["seq_shards"]`` parts (``train_step.init_local_cache``),
+    which needs a distribution context of that many ``model`` ranks."""
+    shards = cache.get("seq_shards", 1)
+    if shards == 1:
+        return 0
+    if ctx is None or ctx.model_size != shards:
+        raise ValueError(f"a cache split over {shards} model ranks, under "
+                         f"{'no distribution context' if ctx is None else ctx.sizes}")
+    return ctx.model_coord * length
 
 
 # ---------------------------------------------------------------------------
@@ -422,19 +520,32 @@ def gqa_apply(
     earlier query of the same write still needs: the JAX package computes
     that case wrongly (ROADMAP, fault 5).
 
-    Without a cache, or with ``kv_source``, under a distribution context
-    with ``model`` above 1 (``dist.context``), the heads are split over
-    ``model`` as the reference pins them there: each rank computes its
-    block of :func:`pad_heads_for_tp`'s layout and its rows of ``wo``, and
-    the ranks' parts are summed over ``model`` in f32."""
+    Under a distribution context with ``model`` above 1
+    (``dist.context``) the heads are split over ``model`` as the reference
+    pins them there: without a cache, or with ``kv_source``, each rank
+    computes its block of :func:`pad_heads_for_tp`'s layout and its rows
+    of ``wo``, and the ranks' parts are summed over ``model`` in f32.  With
+    a cache that is whole along the sequence, every rank holds (and
+    writes) every kv head, attends its block of q slots against the kv
+    slots they read, and sums its rows of ``wo`` the same way.  With a
+    cache split along the sequence over ``model`` (``seq_shards``), every
+    rank computes every head over its positions and the ranks' partial
+    softmax sums are merged (:func:`seq_split_attention`); ``wo`` is then
+    applied whole, with no sum over ``model``."""
     ctx = dist_context.current()
-    if (cache is None or kv_source is not None) and ctx is not None and ctx.model_size > 1:
+    split_heads = ctx is not None and ctx.model_size > 1
+    if (cache is None or kv_source is not None) and split_heads:
         return _gqa_tp(p, x, ctx, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
                        causal=causal and kv_source is None, window=window,
                        rope_theta=rope_theta, kv_source=kv_source), None
     b, s, _ = x.shape
+    q_heads = kv_heads = None
+    if cache is not None and split_heads and cache.get("seq_shards", 1) == 1:
+        q_heads, kv_heads = tp_heads(n_heads, n_kv, ctx.model_size, ctx.model_coord)
+        q = _head_slots(p["wq"], ctx.enter(x), q_heads, head_dim)
+    else:
+        q = dense_apply(p["wq"], x).reshape(b, s, n_heads, head_dim)
     src = x if kv_source is None else kv_source
-    q = dense_apply(p["wq"], x).reshape(b, s, n_heads, head_dim)
     k = dense_apply(p["wk"], src).reshape(b, src.shape[1], n_kv, head_dim)
     v = dense_apply(p["wv"], src).reshape(b, src.shape[1], n_kv, head_dim)
 
@@ -442,38 +553,8 @@ def gqa_apply(
     if kv_source is not None:
         out = attention_any(q, k, v, causal=False)
     elif cache is not None:
-        clen = cache["len"]
-        pos = clen + torch.arange(s, device=x.device)
-        q = apply_rope(q, pos, rope_theta)
-        k = apply_rope(k, pos, rope_theta)
-        ck, cv = cache["k"].clone(), cache["v"].clone()
-        k = k.to(ck.dtype)
-        v = v.to(cv.dtype)
-        max_len = ck.shape[1]
-        if window > 0 and max_len == window:
-            if s > 1 and clen + s > window:
-                raise ValueError(
-                    f"a write of {s} tokens at length {clen} wraps the ring cache of "
-                    f"{window} entries and evicts keys its own queries need; prefill "
-                    f"at most {window - clen} tokens at once here"
-                )
-            idx = (clen + torch.arange(s, device=x.device)) % window
-            ck[:, idx] = k
-            cv[:, idx] = v
-            # unroll the ring chronologically, valid entries first
-            valid = min(clen + s, window)
-            order = (clen + s - valid + torch.arange(window, device=x.device)) % window
-            out = dense_attention(q, ck[:, order], cv[:, order], causal=True,
-                                  q_offset=valid - s, kv_len=valid)
-        else:
-            if clen + s > max_len:
-                raise ValueError(f"the cache holds {max_len} positions; "
-                                 f"{clen} + {s} do not fit")
-            ck[:, clen:clen + s] = k
-            cv[:, clen:clen + s] = v
-            out = dense_attention(q, ck, cv, causal=causal, window=window,
-                                  q_offset=clen, kv_len=clen + s)
-        new_cache = {"k": ck, "v": cv, "len": clen + s}
+        out, new_cache = _cached_attention(q, k, v, cache, ctx, kv_heads, causal=causal,
+                                           window=window, rope_theta=rope_theta)
     else:
         pos = torch.arange(s, device=x.device)
         q = apply_rope(q, pos, rope_theta)
@@ -482,8 +563,66 @@ def gqa_apply(
 
     # attention over a higher-precision cache must not promote the residual
     out = out.to(x.dtype)
+    if q_heads is not None:
+        out = out[:, :, [i for i, h in enumerate(q_heads) if h >= 0]]
+        return _wo_rows(p, out, q_heads, ctx, n_heads=n_heads, head_dim=head_dim), new_cache
     y = dense_apply(p["wo"], out.reshape(b, s, n_heads * head_dim))
     return y, new_cache
+
+
+def _cached_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: Params, ctx,
+                      kv_heads: list[int] | None, *, causal: bool, window: int,
+                      rope_theta: float) -> tuple[torch.Tensor, Params]:
+    """``gqa_apply``'s cached path: rotate ``q`` and the new ``k`` at the
+    cache's length, write ``k`` and ``v`` into a copy of the cache and
+    attend over it.  ``kv_heads`` (the kv slots of a rank's block of the
+    padded-TP layout, ``q`` its q slots) selects the cached heads the
+    attention reads."""
+    s = k.shape[1]
+    clen = cache["len"]
+    pos = clen + torch.arange(s, device=q.device)
+    q = apply_rope(q, pos, rope_theta)
+    k = apply_rope(k, pos, rope_theta)
+    ck, cv = cache["k"].clone(), cache["v"].clone()
+    k = k.to(ck.dtype)
+    v = v.to(cv.dtype)
+    length = ck.shape[1]
+    shards = cache.get("seq_shards", 1)
+    new_cache = {"k": ck, "v": cv, "len": clen + s}
+    if window > 0 and length * shards == window:
+        if shards > 1:
+            raise NotImplementedError(f"a ring cache of {window} entries split over model")
+        if s > 1 and clen + s > window:
+            raise ValueError(
+                f"a write of {s} tokens at length {clen} wraps the ring cache of "
+                f"{window} entries and evicts keys its own queries need; prefill "
+                f"at most {window - clen} tokens at once here"
+            )
+        idx = (clen + torch.arange(s, device=q.device)) % window
+        ck[:, idx] = k
+        cv[:, idx] = v
+        # unroll the ring chronologically, valid entries first
+        valid = min(clen + s, window)
+        order = (clen + s - valid + torch.arange(window, device=q.device)) % window
+        ka, va = ck[:, order], cv[:, order]
+        causal, window, q_offset, kv_len = True, 0, valid - s, valid
+    else:
+        if clen + s > length * shards:
+            raise ValueError(f"the cache holds {length * shards} positions; "
+                             f"{clen} + {s} do not fit")
+        lo = split_offset(cache, ctx, length)
+        write_positions(ck, k, clen, lo)
+        write_positions(cv, v, clen, lo)
+        if shards > 1:
+            out = seq_split_attention(q, ck, cv, ctx, lo=lo, q_offset=clen, kv_len=clen + s,
+                                      causal=causal, window=window)
+            return out, dict(new_cache, seq_shards=shards)
+        ka, va, q_offset, kv_len = ck, cv, clen, clen + s
+    if kv_heads is not None:
+        ka, va = ka[:, :, kv_heads], va[:, :, kv_heads]
+    out = dense_attention(q, ka, va, causal=causal, window=window, q_offset=q_offset,
+                          kv_len=kv_len)
+    return out, new_cache
 
 
 def gqa_init_cache(b: int, max_len: int, n_kv: int, head_dim: int, *,

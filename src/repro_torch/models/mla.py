@@ -22,6 +22,7 @@ import math
 import torch
 
 from ..configs.base import MLAConfig
+from ..dist import context as dist_context
 from .layers import (
     Params,
     _largest_chunk,
@@ -32,6 +33,9 @@ from .layers import (
     flash_attention,
     rmsnorm_apply,
     rmsnorm_init,
+    seq_split_attention,
+    split_offset,
+    write_positions,
 )
 
 __all__ = ["mla_init", "mla_apply", "mla_init_cache"]
@@ -97,7 +101,10 @@ def mla_apply(
     2048 tokens (``flash_attention``, chunks of the largest divisor up to
     1024), dense otherwise.  Plain tensor code, whatever the distribution
     context: the reference computes MLA outside any ``model``-parallel
-    region."""
+    region; but a cache split along the sequence over ``model``
+    (``seq_shards``) holds a rank's positions only, from which it projects
+    k_nope and v, and the ranks' partial softmax sums are merged
+    (``layers.seq_split_attention``)."""
     b, s, _ = x.shape
     qk, rope_d = mla.qk_nope_head_dim, mla.qk_rope_head_dim
 
@@ -116,14 +123,23 @@ def mla_apply(
     new_cache = None
     if cache is not None:
         ckv, kr = cache["ckv"].clone(), cache["kr"].clone()
-        if clen + s > ckv.shape[1]:
-            raise ValueError(f"the cache holds {ckv.shape[1]} positions; {clen} + {s} do not fit")
-        ckv[:, clen:clen + s] = ckv_new.to(ckv.dtype)
-        kr[:, clen:clen + s] = kr_rot.to(kr.dtype)
+        shards = cache.get("seq_shards", 1)
+        if clen + s > ckv.shape[1] * shards:
+            raise ValueError(f"the cache holds {ckv.shape[1] * shards} positions; "
+                             f"{clen} + {s} do not fit")
+        lo = split_offset(cache, dist_context.current(), ckv.shape[1])
+        write_positions(ckv, ckv_new, clen, lo)
+        write_positions(kr, kr_rot, clen, lo)
         new_cache = {"ckv": ckv, "kr": kr, "len": clen + s}
         k_nope, v = _project_kv(p, ckv.to(x.dtype), n_heads, mla)
-        out = dense_attention(q_full, _keys(k_nope, kr.to(x.dtype)), v, causal=causal,
-                              q_offset=clen, kv_len=clen + s)
+        keys = _keys(k_nope, kr.to(x.dtype))
+        if shards > 1:
+            new_cache["seq_shards"] = shards
+            out = seq_split_attention(q_full, keys, v, dist_context.current(), lo=lo,
+                                      q_offset=clen, kv_len=clen + s, causal=causal)
+        else:
+            out = dense_attention(q_full, keys, v, causal=causal, q_offset=clen,
+                                  kv_len=clen + s)
     else:
         k_nope, v = _project_kv(p, ckv_new, n_heads, mla)
         k = _keys(k_nope, kr_rot)

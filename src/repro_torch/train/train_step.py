@@ -26,6 +26,7 @@ of the whole gradient.  With one pod there is no exchange (the reference's
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable
@@ -39,14 +40,14 @@ from ..dist.collectives import PodGroup, SyncConfig, WireStats, sync_gradients
 from ..dist.context import DistContext, distribution
 from ..dist.grouping import group_like_reference, leaf_specs, ungroup
 from ..dist.inpod import InPodGroup, gather_tree
-from ..dist.sharding import batch_rows, fit_batch_axes
+from ..dist.sharding import Spec, batch_rows, fit_batch_axes, local_shape
 from ..models.layers import Params
-from ..models.model import forward, region_leaves
+from ..models.model import forward, init_cache, region_leaves
 from ..optim.adamw import AdamWConfig, adamw_update
-from ..tree import leaves
+from ..tree import leaves, map_paths
 
 __all__ = ["TrainConfig", "loss_fn", "grads_and_loss", "SyncGrads", "build_train_step",
-           "build_serve_step"]
+           "build_serve_step", "cache_specs", "init_local_cache"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,34 +276,145 @@ def build_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     return mesh_step
 
 
-def build_serve_step(cfg: ModelConfig, tcfg: TrainConfig, *, kind: str = "decode",
-                     device: str | torch.device | None = None) -> Callable:
-    """Prefill: ``step(params, batch) -> logits``.
-    Decode: ``step(params, cache, batch) -> (next_tokens int32, new_cache)``,
-    greedy over the last position's f32 logits.  The batch is moved to
-    ``device``; params and cache must already be there."""
-    device = resolve_device(device)
+# a cache's sequence splits over model from this many positions (the
+# reference's _cache_shardings): a long decode's KV cache stays in memory
+SEQ_SPLIT_MIN = 8192
+# the leaves whose split along the sequence the attention knows how to merge
+_SEQ_LEAVES = ("k", "v", "ckv", "kr")
 
-    def _on_device(batch: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-        return {k: v.to(device) for k, v in batch.items()}
+
+def _cache_spec(key: str, leaf, mesh_shape: dict[str, int]) -> Spec:
+    """:func:`cache_specs`' spec of the leaf at ``key``."""
+    if not isinstance(leaf, torch.Tensor) or leaf.ndim == 0:
+        return ()
+    dm = mesh_shape.get("model", 1)
+    spec: list = [None] * leaf.ndim
+    spec[0] = fit_batch_axes(mesh_shape, leaf.shape[0]) or None
+    if leaf.ndim > 1 and dm > 1 and leaf.shape[1] % dm == 0 and leaf.shape[1] >= SEQ_SPLIT_MIN:
+        if key.split("/")[-1] not in _SEQ_LEAVES:
+            raise NotImplementedError(
+                f"cache leaf {key} {tuple(leaf.shape)}: its dim 1 splits over model, "
+                f"and only attention and MLA caches merge a split")
+        spec[1] = "model"
+    return tuple(spec)
+
+
+def cache_specs(cache: Params, mesh_shape: dict[str, int]) -> Params:
+    """The reference's ``_cache_shardings`` (``train/train_step.py:150-176``)
+    applied to the port's cache (``models.model.init_cache``: one entry per
+    layer, no stacked scan axis; ``len`` a host int): the same tree, each
+    tensor leaf's spec a tuple with one entry a dimension, ``len``'s
+    ``()``.  The batch dim goes over the batch axes that divide it
+    (``dist.sharding.fit_batch_axes``, a tuple of axis names, or ``None``);
+    the dim after it over ``model`` where it holds at least
+    ``SEQ_SPLIT_MIN`` entries, ``model`` divides it and ``model`` is above
+    1 (a ring cache spans a window and stays whole below that size).
+    Raises ``NotImplementedError`` naming a leaf that rule splits but that
+    is no attention or MLA cache: the port merges only those."""
+    return map_paths(cache, lambda key, leaf: _cache_spec(key, leaf, mesh_shape))
+
+
+def init_local_cache(cfg: ModelConfig, batch: int, max_len: int | None, mesh_shape: dict[str, int],
+                     dtype: torch.dtype = torch.bfloat16,
+                     device: str | torch.device | None = None) -> Params:
+    """One rank's part of ``init_cache(cfg, batch, max_len)`` on a mesh of
+    ``mesh_shape``, laid out by :func:`cache_specs`: each leaf at its local
+    shape (``dist.sharding.local_shape``: this rank's rows, and its
+    ``1 / model`` of the positions where the sequence splits).  A layer
+    whose cache splits along the sequence carries ``seq_shards`` (the
+    ``model`` size): its attention then holds positions ``model coordinate
+    x L / model`` on."""
+    device = resolve_device(device)
+    split = set()
+
+    def local(key: str, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        spec = _cache_spec(key, leaf, mesh_shape)
+        if "model" in spec:
+            split.add(key.split("/")[1])
+        return torch.zeros(local_shape(leaf.shape, spec, mesh_shape), dtype=leaf.dtype,
+                           device=device)
+
+    cache = map_paths(init_cache(cfg, batch, max_len, dtype, "meta"), local)
+    for i in split:
+        cache["layers"][int(i)]["seq_shards"] = mesh_shape["model"]
+    return cache
+
+
+def build_serve_step(cfg: ModelConfig, tcfg: TrainConfig, *, kind: str = "decode",
+                     device: str | torch.device | None = None, mesh=None) -> Callable:
+    """Prefill: ``step(params, batch, rows=None) -> logits``.
+    Decode: ``step(params, cache, batch, rows=None) -> (next_tokens int32,
+    new_cache)``, greedy over the last position's f32 logits;
+    ``step.logits(params, cache, batch, rows=None)`` is the same call
+    returning ``(logits, new_cache)``.
+    The batch is moved to ``device``; params and cache must already be
+    there.
+
+    With a ``mesh`` (``launch.mesh.Mesh``) of more than one rank, as the
+    reference's ``build_serve_step(cfg, mesh, tcfg)`` serves: every rank
+    holds the whole parameters (serving writes none; the reference's
+    ``p_shard`` spreads them over ``data``, which moves memory, not
+    numbers) and its part of the cache (:func:`init_local_cache`); the step
+    runs under a distribution context (``dist.context``), so attention
+    heads and experts split over ``model`` and a cache's sequence may
+    (``models.layers``, ``models.moe``).  ``batch`` holds this rank's
+    rows of the global batch (``dist.sharding.batch_rows``; ``img`` and
+    ``embeds`` too) and the step is called with ``rows=`` the global row
+    count; it returns its rows' logits or next tokens and its new cache.
+    ``step.ctx`` holds the context, whose counts (``stats``, ``wall_s``,
+    ``merge_bytes``, the MoE's) add up over the calls until
+    ``step.ctx.reset()``."""
+    device = resolve_device(device)
+    if kind not in ("prefill", "decode"):
+        raise ValueError(f"unknown serve step kind {kind!r}; known: ['prefill', 'decode']")
+    ctx = DistContext.from_mesh(mesh) if mesh is not None and mesh.size > 1 else None
+
+    @contextlib.contextmanager
+    def placed(batch: dict[str, torch.Tensor], rows: int | None):
+        """``batch`` (this rank's rows of ``rows``) on the device, under the
+        context."""
+        if ctx is None:
+            yield {k: v.to(device) for k, v in batch.items()}
+            return
+        if rows is None:
+            raise ValueError("a step on a mesh takes this rank's rows of the batch and "
+                             "rows=, the global row count")
+        ctx.splits_rows = "data" in fit_batch_axes(mesh.shape, rows)
+        if (cfg.moe is not None and ctx.model_size > 1 and ctx.data_size > 1
+                and not ctx.splits_rows):
+            raise ValueError(f"{cfg.name} on {mesh.shape}: a global batch of {rows} rows does "
+                             f"not split over data, where the reference's expert parallelism "
+                             f"splits its tokens over data; the port splits rows")
+        own = batch_rows(mesh.shape, mesh.coords, rows)
+        n = next(iter(batch.values())).shape[0]
+        if n != own.stop - own.start:
+            raise ValueError(f"a batch of {n} rows is not this rank's {own} of {rows}")
+        with distribution(ctx):
+            yield {k: v.to(device) for k, v in batch.items()}
 
     if kind == "prefill":
         @torch.inference_mode()
-        def prefill(params, batch):
-            logits, _ = forward(cfg, params, _on_device(batch),
-                                compute_dtype=tcfg.compute_dtype)
+        def prefill(params, batch, rows: int | None = None):
+            with placed(batch, rows) as local:
+                logits, _ = forward(cfg, params, local, compute_dtype=tcfg.compute_dtype)
             return logits
 
+        prefill.ctx = ctx
         return prefill
 
-    if kind == "decode":
-        @torch.inference_mode()
-        def decode(params, cache, batch):
-            logits, new_cache = forward(cfg, params, _on_device(batch), cache=cache,
-                                        compute_dtype=tcfg.compute_dtype)
-            next_tok = logits[:, -1].float().argmax(dim=-1)
-            return next_tok.to(torch.int32), new_cache
+    @torch.inference_mode()
+    def logits(params, cache, batch, rows: int | None = None):
+        with placed(batch, rows) as local:
+            return forward(cfg, params, local, cache=cache, compute_dtype=tcfg.compute_dtype)
 
-        return decode
+    @torch.inference_mode()
+    def decode(params, cache, batch, rows: int | None = None):
+        out, new_cache = logits(params, cache, batch, rows)
+        next_tok = out[:, -1].float().argmax(dim=-1)
+        return next_tok.to(torch.int32), new_cache
 
-    raise ValueError(f"unknown serve step kind {kind!r}; known: ['prefill', 'decode']")
+    decode.logits = logits
+    decode.ctx = ctx
+    return decode

@@ -114,7 +114,8 @@ def test_loss_fn_matches_reference():
 
 
 @pytest.mark.parametrize("seed,step,vocab,seq,batch",
-                         [(0, 0, 512, 16, 2), (3, 7, 32_000, 64, 4), (1, 123, 65_536, 33, 3)])
+                         [(0, 0, 512, 16, 2), (3, 7, 32_000, 64, 4), (1, 123, 65_536, 33, 3),
+                          (2, 5, 129_280, 24, 2), (0, 1, 256_000, 16, 1)])
 def test_synthetic_batches_are_the_references(seed, step, vocab, seq, batch):
     kw = dict(vocab_size=vocab, seq_len=seq, global_batch=batch, seed=seed)
     want = jax_pipeline.SyntheticLM(jax_pipeline.DataConfig(**kw)).batch(step)
