@@ -228,13 +228,27 @@ Phases, each of which fails the run (nonzero exit, no result line):
    model-rank-1 shards; every kernel's count 0; the cache leaves at
    ``cache_specs``' local shapes; the model ranks of a row bit-identical.
    Printed: each part's prefill and decode times, the bytes to gloo a step
-   (the merge's apart), rank 0's device time a step, peak memory a rank.
+   (the merge's apart), rank 0's device time a step, peak memory a rank;
+31. the dry-run (``launch.dryrun``) against the card: (a) phase 15's
+   rwkv6-7b training step and phase 14's granite-moe-3b-a800m prefill,
+   each run once more under ``launch.cost.CostMode`` in its phase (on its
+   weights and state), dry-run on the meta device as one process with the
+   same config, shape and dtypes: FLOPs and bytes equal, exactly; the
+   dry-run's peak against ``torch.cuda.max_memory_allocated()`` over that
+   step, within PEAK_BAND, and a training dry-run given no optimizer state
+   outside it; each step's roofline bound beside its measured time; (b)
+   rank 0 of phase 22's (1, 2, 2) training step and of phase 30 (a)'s
+   prefill and decode steps, dry-run on meta over the fake process group:
+   the bytes of the pod exchange, of the in-pod gathers and reduce-scatters
+   and of the ``model`` sums and merges equal rank 0's counts there, to the
+   byte.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
 released, and phases 11, 13 and 15-30 each on an empty card after the phase
-before.  Each phase prints its wall time.
+before; phase 31 allocates nothing on the card.  Each phase prints its wall
+time.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -494,6 +508,12 @@ MESH_PARTS = (
      "max_len": SPLIT_PROMPT + SPLIT_STEPS, "chunk": 512, "capacity": None, "zero": True,
      "serve": False},
 )
+# phase 31: the band that the card's peak memory over a step (after a reset)
+# must hold against the dry-run's peak of live storage: the caching
+# allocator rounds each block up to 512 bytes and keeps cuBLAS' workspaces,
+# which the dry-run does not see; a step without AdamW's m and v (8 B a
+# parameter) must fall outside it
+PEAK_BAND = (0.97, 1.05)
 # the records every rank holds alike (not its host times, nor its counts of
 # its own nonzero values)
 SHARED_RECORD = ("step", "loss", "grad_norm", "lr", "pods_agree", "dense_values",
@@ -568,12 +588,16 @@ def wkv6_input_bytes(b: int, t: int, h: int, n: int) -> int:
     return 4 * (4 * b * t * h * n + h * n + b * h * n * n)
 
 
+def work_bound(w) -> tuple[float, str]:
+    """``_bound`` of one call's work (``repro_torch.kernels.work``)."""
+    return _bound(w.nbytes, w.flops)
+
+
 def wkv6_bound(b: int, t: int, h: int, n: int) -> tuple[float, str]:
-    """Least time for one WKV6 call: r/k/v/w/u/s0 read once, y and the final
-    state written once; 5 N^2 operations per step and head in the factored
-    form y = r.S + (r.(u*k)) v, S <- diag(w) S + k v^T."""
-    nbytes = wkv6_input_bytes(b, t, h, n) + 4 * (b * t * h * n + b * h * n * n)
-    return _bound(nbytes, 5 * b * h * t * n * n)
+    """Least time for one WKV6 call (``kernels.work.wkv6``)."""
+    from repro_torch.kernels import work
+
+    return work_bound(work.wkv6(b, t, h, n))
 
 
 def rglru_input_bytes(b: int, t: int, d: int) -> int:
@@ -582,10 +606,10 @@ def rglru_input_bytes(b: int, t: int, d: int) -> int:
 
 
 def rglru_bound(b: int, t: int, d: int) -> tuple[float, str]:
-    """Least time for one RG-LRU scan: a, b, h0 read once, h and h_T written
-    once; one FMA (2 operations) per element and step."""
-    nbytes = rglru_input_bytes(b, t, d) + 4 * (b * t * d + b * d)
-    return _bound(nbytes, 2 * b * t * d)
+    """Least time for one RG-LRU scan (``kernels.work.rglru``)."""
+    from repro_torch.kernels import work
+
+    return work_bound(work.rglru(b, t, d))
 
 
 def wkv6_inputs(gen, b, t, h, n, *, zero_state: bool, w_zeros: bool = False):
@@ -810,19 +834,17 @@ def phase_rglru(ops, rglru_scan_ref) -> dict:
 
 
 def wkv6_backward_bound(b: int, t: int, h: int, n: int) -> tuple[float, str]:
-    """Least time for one WKV6 backward: r/k/v/w/dy, u, s0 and ds_fin read
-    once; dr/dk/dv/dw, du and ds0 written once; 14 N^2 operations per step
-    and head (the state and dS recurrences, 3 each; the contractions into
-    dr, dk, dv and dw, 2 each; the O(N) terms left out)."""
-    nbytes = 4 * (9 * b * t * h * n + 2 * h * n + 3 * b * h * n * n)
-    return _bound(nbytes, 14 * b * h * t * n * n)
+    """Least time for one WKV6 backward (``kernels.work.wkv6_backward``)."""
+    from repro_torch.kernels import work
+
+    return work_bound(work.wkv6_backward(b, t, h, n))
 
 
 def rglru_backward_bound(b: int, t: int, d: int) -> tuple[float, str]:
-    """Least time for one RG-LRU backward: a, h, dh, h0 and dh_last read
-    once, da, db and dh0 written once; an add and two multiplies per element
-    and step."""
-    return _bound(4 * (5 * b * t * d + 3 * b * d), 3 * b * t * d)
+    """Least time for one RG-LRU backward (``kernels.work.rglru_backward``)."""
+    from repro_torch.kernels import work
+
+    return work_bound(work.rglru_backward(b, t, d))
 
 
 def time_backward(name, kernel, plain, sets, shape, bound) -> dict:
@@ -954,16 +976,19 @@ def same_bits(name: str, got, want) -> float:
 
 
 def filter_bound(n: int, g_size: int, r_size: int) -> tuple[float, str]:
-    """Least time for the filter over n elements: g and r read once, send and
-    new_r written once; one add and one compare per element."""
-    return _bound(2 * n * (g_size + r_size), 2 * n)
+    """Least time for the filter over n elements
+    (``kernels.work.whitedata_filter``)."""
+    from repro_torch.kernels import work
+
+    return work_bound(work.whitedata_filter(n, g_size, r_size))
 
 
 def merge_bound(m: int, n: int, size: int) -> tuple[float, str]:
-    """Least time for one merge of (m, n) payloads: the winner's row read
-    once (the function needs no more), both version vectors read, the
-    payload and out_ver written; one compare per row."""
-    return _bound(2 * m * n * size + 3 * 4 * m, m)
+    """Least time for one merge of (m, n) payloads
+    (``kernels.work.crdt_merge``)."""
+    from repro_torch.kernels import work
+
+    return work_bound(work.crdt_merge(m, n, size))
 
 
 def phase_filter_small(ops, ref, dev) -> list:
@@ -1269,6 +1294,67 @@ def phase_serve(tag: str, cfg, params, tcfg, dev, counters: dict, expected: dict
     return launches
 
 
+def count_card_step(run, dev, wall_ms: float, **step) -> dict:
+    """Phase 31 (a)'s record of a phase's step: ``run()`` once more under
+    ``launch.cost.CostMode`` on ``dev``, the peak memory reset just before
+    it; ``wall_ms`` the same step's time measured outside the count,
+    ``step`` the arguments of ``launch.dryrun.dry_step`` that repeat it
+    (``cfg``, ``shape``, ``tcfg`` and, for a cached step, ``cache_len`` and
+    ``cache_dtype``)."""
+    import torch
+
+    from repro_torch.launch.cost import CostMode
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    mode = CostMode(dev)
+    t0 = time.perf_counter()
+    with mode:
+        run()
+    torch.cuda.synchronize()
+    return dict(step=step, counts=mode.summary(), wall_ms=wall_ms,
+                peak_bytes=torch.cuda.max_memory_allocated(), held_bytes=before,
+                counted_s=time.perf_counter() - t0)
+
+
+def count_prefill(tag: str, cfg, params, dev) -> dict:
+    """Phase 14's prefill as ``serve()`` prefills it: the cached step
+    (``build_serve_step(kind="decode")``'s ``logits``) in f32 compute on
+    the f32 weights, BATCH x PROMPT_LEN into an empty f32 cache of
+    PROMPT_LEN + GEN_LEN positions; timed after a warm-up, each call on a
+    new cache, then counted for phase 31."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.train.train_step import TrainConfig, build_serve_step, init_local_cache
+
+    tcfg = TrainConfig(compute_dtype=torch.float32)
+    step = build_serve_step(cfg, tcfg, kind="decode", device=dev)
+    batch = {"tokens": torch.from_numpy(make_prompts(cfg, BATCH, PROMPT_LEN, seed=0)).to(dev)}
+    max_len = PROMPT_LEN + GEN_LEN
+
+    def new_cache():
+        return init_local_cache(cfg, BATCH, max_len, {}, torch.float32, dev)
+
+    step.logits(params, new_cache(), batch)
+    cache = new_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step.logits(params, cache, batch)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    cache = new_cache()
+    rec = count_card_step(lambda: step.logits(params, cache, batch), dev, wall_ms, cfg=cfg,
+                          shape=ShapeSpec("phase 14", PROMPT_LEN, BATCH, "prefill"), tcfg=tcfg,
+                          cache_len=max_len, cache_dtype=torch.float32)
+    print(f"{tag} serve()'s prefill ({BATCH} x {PROMPT_LEN} into a {max_len}-position f32 cache, "
+          f"f32) once more for phase 31: {wall_ms:.1f} ms; counted under CostMode in "
+          f"{rec['counted_s']:.1f} s")
+    return rec
+
+
 def draw(tag: str, arch: str, tcfg, dev, n_layers: int | None = None):
     """The config of ``arch`` (cut to its first ``n_layers`` layers where
     given) and its f32 weights, drawn on the card."""
@@ -1530,8 +1616,10 @@ def run_granite(dev, tcfg, counters) -> dict:
     check_attention_model("[13]", no_drop, params, tcfg, dev)
     moe_drop_rates("[13]", cfg, params, tcfg, dev)
     memory_line("[13]", "end")
-    return phase_serve("[14]", cfg, params, tcfg, dev, counters,
-                       {name: 0 for name in counters})
+    card_step = count_prefill("[14]", cfg, params, dev)
+    return {"launches": phase_serve("[14]", cfg, params, tcfg, dev, counters,
+                                    {name: 0 for name in counters}),
+            "counted": card_step}
 
 
 def phase_mla_alone(tag: str, cfg, dev) -> None:
@@ -1987,14 +2075,16 @@ def cut_config(arch: str, n_layers: int | None, **changes):
     return dataclasses.replace(full, **changes), full
 
 
-def run_training(tag, cfg, full, batch, seq, dev, counters, kernels) -> dict:
+def run_training(tag, cfg, full, batch, seq, dev, counters, kernels,
+                 count: bool = False) -> dict:
     """Phases 15-17 and 27-29: ``cfg`` (``full`` cut in depth) at full
     width, each check on an emptied card: (a) and (d), then (b)
     TRAIN_STEPS steps at batch x seq (the counted main path) through
     ``launch.train.train()``, or through ``build_train_step``
     (``drive_steps``) for a model that reads frames or an image context,
     which ``train()``'s pipeline does not yield, then (c) FALL_STEPS steps
-    on one repeated batch, the last one profiled."""
+    on one repeated batch, the last one profiled; with ``count`` one more
+    step under ``CostMode``, phase 31's record (``counted``)."""
     import torch
 
     from repro_torch.data.pipeline import DataConfig
@@ -2086,11 +2176,21 @@ def run_training(tag, cfg, full, batch, seq, dev, counters, kernels) -> dict:
         if kernel_ms:
             print("  the port's kernels in that step: " + ", ".join(
                 f"{k} {ms:.2f} ms ({ms / dev_ms:.2%})" for k, ms in kernel_ms.items()))
+    card_step = None
+    if count:
+        from repro_torch.configs.base import ShapeSpec
+
+        card_step = count_card_step(lambda: step(params, opt, one), dev, wall_ms, cfg=cfg,
+                                    shape=ShapeSpec(f"phase {tag}", seq, batch, "train"),
+                                    tcfg=ctcfg)
+        print(f"{tag} one more step for phase 31, counted under CostMode in "
+              f"{card_step['counted_s']:.1f} s")
     del params, opt, step, one
     torch.cuda.empty_cache()
     memory_line(tag, "end")
     return {"launches": counts, "step_ms": steady * 1e3, "tokens_per_s": tokens / steady,
-            "peak_gb": peak_gb, "device_ms": dev_ms, "wall_ms": wall_ms, "kernel_ms": kernel_ms}
+            "peak_gb": peak_gb, "device_ms": dev_ms, "wall_ms": wall_ms, "kernel_ms": kernel_ms,
+            "counted": card_step}
 
 
 def run_cross_hazard(tag: str, cfg, dev) -> dict:
@@ -3133,10 +3233,11 @@ def tp_rank(rank: int, ref_dir: str) -> dict:
     return out
 
 
-def run_tp() -> None:
+def run_tp() -> list[dict]:
     """Phase 22: granite-moe-3b-a800m on a (1, 2, 2) mesh on the card (four
     ranks of one gloo group), after its yardstick on (1, 1, 1) (this
-    process), gated here across the ranks."""
+    process), gated here across the ranks.  Returns rank 0's step records
+    (its bytes to gloo, for phase 31)."""
     import torch
 
     from repro_torch.dist.context import DistContext
@@ -3230,6 +3331,7 @@ def run_tp() -> None:
     if over:
         fail(f"[22] {over[0]}: the synced gradient {errs[over[0]]:.3e} of its norm from the "
              f"yardstick's (> {limits[over[0]]:.3e})")
+    return ranks[0]["history"]
 
 def square_frames(rounds: int):
     """The reference test's square for SQUARE_ROUNDS rounds, then spiked."""
@@ -3669,9 +3771,11 @@ def mesh_serve_text(part: dict, cfg) -> str:
     return text
 
 
-def run_serve_mesh(dev, parts=MESH_PARTS, device: str = "cuda") -> None:
+def run_serve_mesh(dev, parts=MESH_PARTS, device: str = "cuda") -> dict:
     """Phase 30: each part's yardstick in this process, then the four ranks
-    on the card (or the CPU, to rehearse), gated here across them."""
+    on the card (or the CPU, to rehearse), gated here across them.  Returns
+    rank 0's counts of each part's prefill and decode steps by its tag (for
+    phase 31)."""
     import torch
 
     from repro_torch.dist.sharding import batch_rows
@@ -3789,6 +3893,107 @@ def run_serve_mesh(dev, parts=MESH_PARTS, device: str = "cuda") -> None:
             print(f"[30] {tag} bf16 decode with serve()'s cast weights vs one process: "
                   f"{worst16:.3e} x the largest logit at worst ({worst16 / limit16:.2f} of the "
                   f"limit {limit16:.3e})")
+    return {part["tag"]: {"prefill": ranks[0]["parts"][part["tag"]]["prefill_counts"],
+                          "decode": ranks[0]["parts"][part["tag"]]["decode_counts"]}
+            for part in parts}
+
+
+def step_bound_ms(cost: dict, compute_dtype) -> tuple[float, str]:
+    """A whole step's roofline bound on one card (``launch.roofline``'s
+    peaks): its FLOPs over the peak of its compute dtype or its bytes over
+    HBM's rate, whichever is larger (ms)."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+
+    by_ops = cost["flops"] / PEAK_FLOPS[str(compute_dtype).removeprefix("torch.")] * 1e3
+    by_bytes = cost["bytes"] / HBM_BW * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+def check_card_step(name: str, rec: dict) -> None:
+    """Phase 31 (a) for one of ``count_card_step``'s records: the dry-run of
+    the same step on meta against what the card counted and allocated."""
+    from repro_torch.launch.dryrun import dry_step
+
+    card, step = rec["counts"], rec["step"]
+    dry = dry_step(**step)
+    cost = dry["cost"]
+    print(f"[31] (a) {name}: {step['cfg'].name}, {step['cfg'].n_layers} layers, "
+          f"{step['shape'].global_batch} x {step['shape'].seq_len}, {step['tcfg'].compute_dtype}; "
+          f"dry-run in {dry['trace_s']:.1f} s: {cost['flops']:,} FLOPs and {cost['bytes']:,} bytes "
+          f"(the kernels' {cost['kernel_flops']:,} and {cost['kernel_bytes']:,} over "
+          f"{cost['kernel_calls']} calls); on the card {card['flops']:,} and {card['bytes']:,} "
+          f"({card['kernel_calls']} kernel calls)")
+    for key in ("flops", "bytes", "kernel_calls"):
+        if cost[key] != card[key]:
+            fail(f"[31] (a) {name}: {key} {cost[key]:,} on meta, {card[key]:,} on the card: the "
+                 f"step took another branch on one of them")
+    dry_peak = dry["memory"]["peak_gb"] * 1e9
+    ratio = rec["peak_bytes"] / dry_peak
+    print(f"[31] (a) {name}: peak {rec['peak_bytes'] / 1e9:.3f} GB on the card "
+          f"(max_memory_allocated, {rec['held_bytes'] / 1e9:.3f} GB held at the reset), "
+          f"{dry_peak / 1e9:.3f} GB dry-run ({dry['memory']['argument_gb']:.3f} GB of arguments): "
+          f"{ratio:.4f}, band {PEAK_BAND}")
+    if not PEAK_BAND[0] <= ratio <= PEAK_BAND[1]:
+        fail(f"[31] (a) {name}: the card's peak is {ratio:.4f} x the dry-run's, outside {PEAK_BAND}")
+    if step["shape"].kind == "train":
+        bare = dry_step(**step, optimizer=False)
+        bare_ratio = rec["peak_bytes"] / (bare["memory"]["peak_gb"] * 1e9)
+        print(f"[31] (a) {name}: the negative control, a dry-run with no optimizer state: peak "
+              f"{bare['memory']['peak_gb']:.3f} GB, {bare_ratio:.4f} (must fall outside the band)")
+        if PEAK_BAND[0] <= bare_ratio <= PEAK_BAND[1]:
+            fail(f"[31] (a) {name}: the band {PEAK_BAND} does not catch a dry-run without AdamW's "
+                 f"state ({bare_ratio:.4f})")
+    bound_ms, by = step_bound_ms(cost, step["tcfg"].compute_dtype)
+    print(f"[31] (a) {name}: roofline bound {bound_ms:.2f} ms ({by}), measured "
+          f"{rec['wall_ms']:.2f} ms a step: {bound_ms / rec['wall_ms']:.1%} of the bound")
+
+
+def check_wire(tag: str, what: str, got: dict, dry: dict) -> None:
+    """Phase 31 (b): rank 0's counts on the card against the dry-run's, to
+    the byte."""
+    print(f"[31] (b) {tag} {what}: to gloo on the card {got}, dry-run {dry}")
+    if got != dry:
+        fail(f"[31] (b) {tag} {what}: rank 0 handed gloo {got} bytes on the card, the dry-run "
+             f"counts {dry}")
+
+
+def run_dryrun_check(card_steps: dict, tp_history: list, mesh_counts: dict) -> None:
+    """Phase 31: (a) the counted steps of phases 15 and 14 (``card_steps``,
+    ``train`` and ``prefill``) against their dry-runs; (b) rank 0's bytes to gloo in phases 22 and 30
+    (a) against the dry-run of rank 0 of the same (1, 2, 2) mesh."""
+    import torch
+
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.dist.collectives import SyncConfig
+    from repro_torch.launch.dryrun import dry_step
+    from repro_torch.train.train_step import TrainConfig
+
+    for name in ("train", "prefill"):
+        check_card_step(name, card_steps[name])
+
+    dry = dry_step(tp_config(), ShapeSpec("phase 22", POD_SEQ, TP_BATCH, "train"),
+                   TrainConfig(sync=SyncConfig("hier")), TP_MESH)
+    wire = dry["wire"]
+    for rec in tp_history:
+        check_wire("[22]", f"step {rec['step']} (pod, in-pod, model)",
+                   {"pod": rec["bytes_sent"], "inpod": rec["inpod_bytes"], "model": rec["tp_bytes"]},
+                   {"pod": wire["pod"], "inpod": wire["inpod"], "model": wire["model"] + wire["merge"]})
+    print(f"[31] (b) [22] left out of the dry-run: " + "; ".join(
+        f"{x['name']} ({x['group']}) {x['bytes']:.0f} B" for x in dry["left_out"]))
+
+    part = MESH_PARTS[0]
+    cfg, f32 = mesh_part_config(part), TrainConfig(compute_dtype=torch.float32)
+    got = mesh_counts[part["tag"]]
+    pre = dry_step(cfg, ShapeSpec("phase 30 (a) prefill", part["prompt"], part["batch"], "prefill"),
+                   f32, MESH_SERVE, cache_len=part["max_len"], cache_dtype=torch.float32)["wire"]
+    check_wire("[30] (a)", "prefill (model sums and merges, merges)",
+               {"model": got["prefill"]["tp_bytes"], "merge": got["prefill"]["merge_bytes"]},
+               {"model": pre["model"] + pre["merge"], "merge": pre["merge"]})
+    dec = dry_step(cfg, ShapeSpec("phase 30 (a) decode", part["max_len"], part["batch"], "decode"),
+                   f32, MESH_SERVE, cache_dtype=torch.float32)["wire"]
+    check_wire("[30] (a)", f"{MESH_STEPS} decode steps (model sums and merges, merges)",
+               {"model": got["decode"]["tp_bytes"], "merge": got["decode"]["merge_bytes"]},
+               {"model": MESH_STEPS * (dec["model"] + dec["merge"]), "merge": MESH_STEPS * dec["merge"]})
 
 
 def run_topk(shapes, dev, filter_ms: float) -> dict:
@@ -3939,9 +4144,13 @@ def main() -> None:
     entries["crdt_merge"]["launches"] = merge["launches"]["crdt_merge"]
 
     # ---- 11-14. the global-attention decoders: minitron-8b, then granite-moe-3b-a800m
+    # (phase 14's prefill counted once more for phase 31)
+    card_steps = {}
     for arch, run in ((DENSE, run_minitron), (MOE, run_granite)):
         t_phase = time.perf_counter()
-        run(dev, tcfg, counters)
+        res = run(dev, tcfg, counters)
+        if arch == MOE:
+            card_steps["prefill"] = res["counted"]
         torch.cuda.empty_cache()
         print(f"  released the {arch} weights: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
               f"still allocated; {time.perf_counter() - t_phase:.1f} s")
@@ -3952,7 +4161,10 @@ def main() -> None:
             ("[16]", RG, 3, (1, 4096), ("rglru_scan", "rglru_scan_backward")),
             ("[17]", MOE, 16, (1, 4096), None)):
         t_phase = time.perf_counter()
-        res = run_training(tag, *cut_config(arch, layers), b, s_len, dev, counters, kernels)
+        res = run_training(tag, *cut_config(arch, layers), b, s_len, dev, counters, kernels,
+                           count=tag == "[15]")
+        if tag == "[15]":
+            card_steps["train"] = res["counted"]
         if kernels is not None:
             for name in kernels:
                 entries[name]["train_launches"] = res["launches"][name]
@@ -3990,7 +4202,7 @@ def main() -> None:
     # ---- 22. granite-moe-3b-a800m, heads and experts split over model, on the emptied card
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    run_tp()
+    tp_history = run_tp()
     print(f"  [22] took {time.perf_counter() - t_phase:.1f} s")
 
     # ---- 23. the trainer on four pods of the emptied card
@@ -4015,8 +4227,13 @@ def main() -> None:
     # ---- 30. serving on a (1, 2, 2) mesh of the emptied card
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()
-    run_serve_mesh(dev)
+    mesh_counts = run_serve_mesh(dev)
     print(f"  [30] took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 31. the dry-run against the card (nothing allocated on it)
+    t_phase = time.perf_counter()
+    run_dryrun_check(card_steps, tp_history, mesh_counts)
+    print(f"  [31] took {time.perf_counter() - t_phase:.1f} s")
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

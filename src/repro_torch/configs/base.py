@@ -6,7 +6,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-__all__ = ["MoEConfig", "MLAConfig", "Block", "ModelConfig", "ShapeSpec"]
+__all__ = ["MoEConfig", "MLAConfig", "Block", "ModelConfig", "ShapeSpec", "SHAPES",
+           "applicable_shapes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +100,18 @@ class ModelConfig:
         return pre, n_scan, self.blocks_pattern, suffix
 
     @property
+    def is_attention_free(self) -> bool:
+        mixers = {b.mixer for b in self.block_list()}
+        return mixers <= {"rwkv", "rglru"}
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic sequence mixing: SSM / hybrid / windowed-only attn."""
+        mixers = {b.mixer for b in self.block_list()}
+        quadratic = {"attn", "mla", "attn_cross"}
+        return not (mixers & quadratic)
+
+    @property
     def is_encoder_only(self) -> bool:
         return not self.causal
 
@@ -109,3 +122,24 @@ class ShapeSpec:
     seq_len: int
     global_batch: int
     kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[ShapeSpec]:
+    """The shape cells this architecture runs: an encoder has no decode,
+    and only a model without quadratic attention decodes at 500k."""
+    out = []
+    for s in SHAPES.values():
+        if s.kind == "decode" and cfg.is_encoder_only:
+            continue
+        if s.name == "long_500k" and not cfg.supports_long_context:
+            continue
+        out.append(s)
+    return out

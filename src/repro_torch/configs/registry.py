@@ -15,7 +15,7 @@ from . import (
     recurrentgemma_9b,
     rwkv6_7b,
 )
-from .base import ModelConfig
+from .base import ModelConfig, ShapeSpec, applicable_shapes
 
 _MODULES = {
     m.ARCH_ID: m
@@ -48,3 +48,9 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
+
+
+def cells(archs: tuple[str, ...] = ARCHS) -> list[tuple[str, ShapeSpec]]:
+    """Every (arch, shape) cell the dry-run covers, after
+    :func:`~.base.applicable_shapes`' skips."""
+    return [(a, s) for a in archs for s in applicable_shapes(get_config(a))]

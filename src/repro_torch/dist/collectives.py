@@ -42,6 +42,7 @@ import torch
 import torch.distributed as dist
 
 from ..core import strategies
+from ..kernels import work
 from ..tree import leaves as tree_leaves
 
 __all__ = [
@@ -208,7 +209,14 @@ class PodGroup:
     gloo moves host tensors only, so a device tensor is copied into a
     pinned host buffer before each gloo call and back after it; the buffers
     are kept and grown to the largest message.  ``rank`` and ``size`` are
-    this process' index on the axis and the axis' size."""
+    this process' index on the axis and the axis' size.
+
+    A message on the meta device (the dry-run, ``launch.dryrun``) is
+    neither staged nor handed to gloo: each collective counts the bytes
+    the real one would (``host_s`` stays 0) and returns a meta tensor of
+    the real one's shape.  The staging and copies are hidden from a cost
+    counter (``kernels.work.hidden``): their cost is the bytes on the
+    link."""
 
     def __init__(self, group: dist.ProcessGroup | None = None):
         self.group = group if group is not None else dist.group.WORLD
@@ -246,17 +254,26 @@ class PodGroup:
             return host
         return host.to(device)
 
+    def _sent(self, nbytes: float, t0: float, meta: bool) -> None:
+        self.stats.bytes_sent += nbytes
+        if not meta:
+            self.stats.host_s += time.perf_counter() - t0  # lint: allow[wallclock] the wire's host time
+
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the pods (gloo's all-reduce), on ``x``'s
         device; ``x`` itself is left as it is."""
         t0 = time.perf_counter()  # lint: allow[wallclock] the wire's host time
-        host = self._stage_out(x, 0)
-        if host is x:
-            host = x.clone()
-        dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group)
-        out = self._back(host, x.device)
-        self.stats.bytes_sent += 2 * (self.size - 1) / self.size * host.numel() * host.element_size()
-        self.stats.host_s += time.perf_counter() - t0  # lint: allow[wallclock] the wire's host time
+        meta = x.device.type == "meta"
+        with work.hidden():
+            if meta:
+                out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            else:
+                host = self._stage_out(x, 0)
+                if host is x:
+                    host = x.clone()
+                dist.all_reduce(host, op=dist.ReduceOp.SUM, group=self.group)
+                out = self._back(host, x.device)
+        self._sent(2 * (self.size - 1) / self.size * x.numel() * x.element_size(), t0, meta)
         return out
 
     def ring_pass(self, x: torch.Tensor, dst: int, src: int) -> torch.Tensor:
@@ -264,27 +281,37 @@ class PodGroup:
         from pod ``src``; every send and receive of the round is posted
         together and waited on together."""
         t0 = time.perf_counter()  # lint: allow[wallclock] the wire's host time
-        send = self._stage_out(x, 0)
-        recv = self._recv_buffer(tuple(x.shape), x)
-        ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(self.group, dst), self.group),
-               dist.P2POp(dist.irecv, recv, dist.get_global_rank(self.group, src), self.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        out = self._back(recv, x.device)
-        self.stats.bytes_sent += send.numel() * send.element_size()
-        self.stats.host_s += time.perf_counter() - t0  # lint: allow[wallclock] the wire's host time
+        meta = x.device.type == "meta"
+        with work.hidden():
+            if meta:
+                out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+            else:
+                send = self._stage_out(x, 0)
+                recv = self._recv_buffer(tuple(x.shape), x)
+                ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(self.group, dst),
+                                  self.group),
+                       dist.P2POp(dist.irecv, recv, dist.get_global_rank(self.group, src),
+                                  self.group)]
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+                out = self._back(recv, x.device)
+        self._sent(x.numel() * x.element_size(), t0, meta)
         return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every member's ``x`` (all of one shape), stacked along a new first
         axis in member order, on ``x``'s device."""
         t0 = time.perf_counter()  # lint: allow[wallclock] the wire's host time
-        send = self._stage_out(x, 0)
-        recv = self._recv_buffer((self.size, *x.shape), x)
-        dist.all_gather(list(recv.unbind(0)), send, group=self.group)
-        out = self._back(recv, x.device)
-        self.stats.bytes_sent += (self.size - 1) * send.numel() * send.element_size()
-        self.stats.host_s += time.perf_counter() - t0  # lint: allow[wallclock] the wire's host time
+        meta = x.device.type == "meta"
+        with work.hidden():
+            if meta:
+                out = torch.empty((self.size, *x.shape), dtype=x.dtype, device=x.device)
+            else:
+                send = self._stage_out(x, 0)
+                recv = self._recv_buffer((self.size, *x.shape), x)
+                dist.all_gather(list(recv.unbind(0)), send, group=self.group)
+                out = self._back(recv, x.device)
+        self._sent((self.size - 1) * x.numel() * x.element_size(), t0, meta)
         return out
 
     def all_gather_sum(self, x: torch.Tensor) -> torch.Tensor:
@@ -306,20 +333,25 @@ class PodGroup:
         t0 = time.perf_counter()  # lint: allow[wallclock] the wire's host time
         if x.shape[0] % self.size:
             raise ValueError(f"a first axis of {x.shape[0]} does not split over {self.size} ranks")
-        send = self._stage_out(x, 0).view(self.size, x.shape[0] // self.size, *x.shape[1:])
-        recv = self._recv_buffer(tuple(send.shape), x)
-        ops = []
-        for j in range(self.size):
-            if j != self.rank:
-                peer = dist.get_global_rank(self.group, j)
-                ops += [dist.P2POp(dist.isend, send[j], peer, self.group),
-                        dist.P2POp(dist.irecv, recv[j], peer, self.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        recv[self.rank].copy_(send[self.rank])
-        blocks = self._back(recv, x.device)
-        self.stats.bytes_sent += (self.size - 1) * send[0].numel() * send.element_size()
-        self.stats.host_s += time.perf_counter() - t0  # lint: allow[wallclock] the wire's host time
+        shape = (self.size, x.shape[0] // self.size, *x.shape[1:])
+        meta = x.device.type == "meta"
+        with work.hidden():
+            if meta:
+                blocks = torch.empty(shape, dtype=x.dtype, device=x.device)
+            else:
+                send = self._stage_out(x, 0).view(shape)
+                recv = self._recv_buffer(shape, x)
+                ops = []
+                for j in range(self.size):
+                    if j != self.rank:
+                        peer = dist.get_global_rank(self.group, j)
+                        ops += [dist.P2POp(dist.isend, send[j], peer, self.group),
+                                dist.P2POp(dist.irecv, recv[j], peer, self.group)]
+                for req in dist.batch_isend_irecv(ops):
+                    req.wait()
+                recv[self.rank].copy_(send[self.rank])
+                blocks = self._back(recv, x.device)
+        self._sent((self.size - 1) * (x.numel() // self.size) * x.element_size(), t0, meta)
         acc = blocks[0]
         for j in range(1, self.size):
             acc = acc + blocks[j]
@@ -418,11 +450,19 @@ def chunked_topk_exchange(
     new_residual in f32)``.  With ``density=1.0`` this is a plain pod mean
     and the residual returns to zero.  ``order`` routes the sum over the
     relay ring (:func:`relay_psum`).
+
+    On the meta device the selections are counted from the chunks (k per
+    chunk, as ``topk_select`` always keeps), and the nonzero values among
+    them, which depend on the data, are not.
     """
     shape, n = grad.shape, grad.numel()
     sent, new_res, mask = topk_select(grad, residual, density=density, chunk=chunk)
-    group.stats.sparse_values += int(torch.count_nonzero(mask))
-    group.stats.nonzero_sent += int(torch.count_nonzero(sent))
+    if mask.device.type == "meta":
+        group.stats.sparse_values += mask.shape[0] * min(max(1, int(round(density * chunk))), chunk)
+    else:
+        with work.hidden():
+            group.stats.sparse_values += int(torch.count_nonzero(mask))
+            group.stats.nonzero_sent += int(torch.count_nonzero(sent))
     del mask
     new_res = new_res.reshape(-1)[:n].view(shape)
     out = _pod_mean(sent, group, group.size, order)

@@ -3,6 +3,9 @@ on the card, the plain PyTorch version (``ref.py``) on the CPU.
 
 Counterpart of ``repro/kernels/crdt_merge/ops.py``, without its
 ``use_kernel`` and ``interpret`` switches: the device of the tensors decides.
+Tensors on the meta device take the kernel's checks and allocations with no
+launch.  Every call reports its work (``kernels.work``) to the active cost
+counter, whatever runs it.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, work
 from .ref import crdt_merge_ref
 
 __all__ = ["crdt_merge", "crdt_merge_many", "crdt_merge_ref"]
@@ -48,7 +51,8 @@ def crdt_merge(
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel,
     which takes contiguous float32, bfloat16 or int32 payloads of one dtype;
-    anything else raises.
+    anything else raises.  Meta tensors give the outputs under the kernel's
+    conditions, with no launch.
     """
     if val_a.dim() != 2 or val_b.shape != val_a.shape:
         raise ValueError(f"payloads must be (M, N) of one shape; got {tuple(val_a.shape)} "
@@ -61,11 +65,13 @@ def crdt_merge(
         raise TypeError(f"payloads of two dtypes: {val_a.dtype} and {val_b.dtype}")
     ver_a, ver_b = ver_a.to(torch.int32), ver_b.to(torch.int32)
     args = (val_a, ver_a, val_b, ver_b)
+    call_work = work.crdt_merge(m, n, val_a.element_size())
     if all(x.device.type == "cpu" for x in args):
-        return crdt_merge_ref(*args)
-    if any(x.device != val_a.device for x in args) or val_a.device.type != "cuda":
+        with work.kernel_call(call_work):
+            return crdt_merge_ref(*args)
+    if any(x.device != val_a.device for x in args) or val_a.device.type not in ("cuda", "meta"):
         raise ValueError(
-            "crdt_merge takes all tensors on the CPU or all on one CUDA device; got "
+            "crdt_merge takes all tensors on the CPU, on one CUDA device or on meta; got "
             + ", ".join(str(x.device) for x in args)
         )
     if val_a.dtype not in KERNEL_DTYPES:
@@ -74,9 +80,10 @@ def crdt_merge(
     if not all(x.is_contiguous() for x in args):
         raise ValueError("the crdt_merge kernel takes contiguous tensors only")
 
-    out_val = torch.empty_like(val_a)
-    out_ver = torch.empty_like(ver_a)
-    if m == 0:
+    with work.kernel_call(call_work):
+        out_val = torch.empty_like(val_a)
+        out_ver = torch.empty_like(ver_a)
+    if m == 0 or val_a.device.type == "meta":
         return out_val, out_ver
     with torch.cuda.device(val_a.device):
         rc = _kernel()(

@@ -7,6 +7,10 @@ Counterpart of ``repro/kernels/rglru_scan/ops.py``.
 it, it runs as a ``torch.autograd.Function`` that saves a and the f32 h and
 whose backward is ``rglru_scan_backward`` (the backward kernel on the
 card).  Otherwise, as under ``torch.inference_mode``, it saves nothing.
+
+Tensors on the meta device (the dry-run, ``launch.dryrun``) take the
+kernels' checks and allocations with no launch.  Every call reports its
+work (``kernels.work``) to the active cost counter, whatever runs it.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, work
 from .ref import rglru_scan_backward_ref, rglru_scan_ref
 
 __all__ = ["rglru_scan", "rglru_scan_backward", "rglru_scan_ref", "rglru_scan_backward_ref"]
@@ -47,22 +51,23 @@ def _check_shapes(a, b, h0) -> None:
         raise ValueError(f"empty input: (B, T, D) = {(bsz, t, d)}")
 
 
-def _on_cpu(args) -> bool:
-    """True when every tensor lies on the CPU; False when all lie on one
-    CUDA device and the kernels take them; raises otherwise."""
+def _route(args) -> str:
+    """``"cpu"`` when every tensor lies on the CPU; ``"cuda"`` when all lie
+    on one CUDA device and the kernels take them, ``"meta"`` when all lie
+    on the meta device and the kernels would take them; raises otherwise."""
     if all(x.device.type == "cpu" for x in args):
-        return True
+        return "cpu"
     dev = args[0].device
-    if any(x.device != dev for x in args) or dev.type != "cuda":
+    if any(x.device != dev for x in args) or dev.type not in ("cuda", "meta"):
         raise ValueError(
-            "rglru_scan takes all tensors on the CPU or all on one CUDA device; got "
+            "rglru_scan takes all tensors on the CPU, on one CUDA device or on meta; got "
             + ", ".join(str(x.device) for x in args)
         )
     if any(x.dtype != torch.float32 for x in args):
         raise TypeError("the rglru_scan kernels take float32 tensors only")
     if not all(x.is_contiguous() for x in args):
         raise ValueError("the rglru_scan kernels take contiguous tensors only")
-    return False
+    return dev.type
 
 
 def _launch(lib: str, fn_name: str, ptrs, bsz: int, t: int, d: int, device) -> None:
@@ -76,12 +81,15 @@ def _launch(lib: str, fn_name: str, ptrs, bsz: int, t: int, d: int, device) -> N
 
 
 def _forward(a, b, h0) -> tuple[torch.Tensor, torch.Tensor]:
-    if _on_cpu((a, b, h0)):
-        return rglru_scan_ref(a, b, h0)
-    h = torch.empty_like(a)
-    h_last = torch.empty_like(h0)
-    _launch("rglru_scan", "rglru_scan_forward", (a, b, h0, h, h_last), *a.shape, a.device)
-    rglru_scan.launches += 1
+    route = _route((a, b, h0))
+    with work.kernel_call(work.rglru(*a.shape)):
+        if route == "cpu":
+            return rglru_scan_ref(a, b, h0)
+        h = torch.empty_like(a)
+        h_last = torch.empty_like(h0)
+    if route == "cuda":
+        _launch("rglru_scan", "rglru_scan_forward", (a, b, h0, h, h_last), *a.shape, a.device)
+        rglru_scan.launches += 1
     return h, h_last
 
 
@@ -89,7 +97,8 @@ def rglru_scan_backward(a, h, h0, dh, dh_last) -> tuple[torch.Tensor, ...]:
     """Gradients (da, db, dh0) of ``rglru_scan(a, b, h0)``, whose output was
     ``h``, given dh (B, T, D) and dh_last (B, D).  CPU tensors take the plain
     reverse scan; CUDA tensors launch the backward kernel, which takes
-    contiguous float32 inputs."""
+    contiguous float32 inputs; meta tensors take its checks and
+    allocations with no launch."""
     _check_shapes(a, h, h0)
     if dh.shape != a.shape or dh_last.shape != h0.shape:
         raise ValueError(
@@ -97,12 +106,15 @@ def rglru_scan_backward(a, h, h0, dh, dh_last) -> tuple[torch.Tensor, ...]:
             f"{tuple(a.shape)} / h0 {tuple(h0.shape)}"
         )
     args = (a, h, h0, dh, dh_last)
-    if _on_cpu(args):
-        return rglru_scan_backward_ref(*args)
-    da, db, dh0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
-    _launch("rglru_scan_backward", "rglru_scan_backward", (*args, da, db, dh0), *a.shape,
-            a.device)
-    rglru_scan_backward.launches += 1
+    route = _route(args)
+    with work.kernel_call(work.rglru_backward(*a.shape)):
+        if route == "cpu":
+            return rglru_scan_backward_ref(*args)
+        da, db, dh0 = torch.empty_like(a), torch.empty_like(a), torch.empty_like(h0)
+    if route == "cuda":
+        _launch("rglru_scan_backward", "rglru_scan_backward", (*args, da, db, dh0), *a.shape,
+                a.device)
+        rglru_scan_backward.launches += 1
     return da, db, dh0
 
 
@@ -134,7 +146,8 @@ def rglru_scan(
     """Returns (h (B, T, D) f32, h_T (B, D) f32).
 
     CPU tensors take the plain recurrence.  CUDA tensors launch the kernel,
-    which takes contiguous float32 inputs; anything else raises.
+    which takes contiguous float32 inputs; anything else raises.  Meta
+    tensors give the outputs under the kernel's conditions, with no launch.
     """
     _check_shapes(a, b, h0)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (a, b, h0)):

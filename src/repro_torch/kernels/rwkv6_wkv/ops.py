@@ -8,6 +8,10 @@ model's (B, T, H, N) layout directly, so no transposes are needed.
 runs as a ``torch.autograd.Function`` whose backward is ``wkv6_backward``
 (the backward kernel on the card).  Otherwise, as under
 ``torch.inference_mode``, it saves nothing.
+
+Tensors on the meta device (the dry-run, ``launch.dryrun``) take the
+kernels' checks and allocations with no launch.  Every call reports its
+work (``kernels.work``) to the active cost counter, whatever runs it.
 """
 
 from __future__ import annotations
@@ -17,13 +21,16 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, work
 from .ref import wkv6_backward_ref, wkv6_ref
 
 __all__ = ["wkv6", "wkv6_backward", "wkv6_ref", "wkv6_backward_ref", "KERNEL_HEAD_DIMS"]
 
 # head dims the kernels are instantiated for (smoke config 16, rwkv6-7b 64)
 KERNEL_HEAD_DIMS = (16, 64)
+# steps between the backward kernel's state checkpoints (kChunk in
+# csrc/wkv6_backward.cu), which size its (B H, ceil(T / chunk), N, N) buffer
+BACKWARD_CHUNK = 8
 
 
 @functools.cache
@@ -39,10 +46,13 @@ def _backward_kernel():
     lib = _build.load("wkv6_backward")
     lib.wkv6_backward_chunk.argtypes = []
     lib.wkv6_backward_chunk.restype = ctypes.c_int
+    if lib.wkv6_backward_chunk() != BACKWARD_CHUNK:
+        raise RuntimeError(f"the wkv6 backward kernel checkpoints every "
+                           f"{lib.wkv6_backward_chunk()} steps, BACKWARD_CHUNK is {BACKWARD_CHUNK}")
     fn = lib.wkv6_backward
     fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn, lib.wkv6_backward_chunk()
+    return fn
 
 
 def _error_string(lib: str, code: int) -> str:
@@ -65,15 +75,16 @@ def _check_shapes(r, k, v, w, u, state) -> None:
         raise ValueError(f"empty input: (B, T, H, N) = {(b, t, h, n)}")
 
 
-def _on_cpu(args) -> bool:
-    """True when every tensor lies on the CPU; False when all lie on one
-    CUDA device and the kernels take them; raises otherwise."""
+def _route(args) -> str:
+    """``"cpu"`` when every tensor lies on the CPU; ``"cuda"`` when all lie
+    on one CUDA device and the kernels take them, ``"meta"`` when all lie
+    on the meta device and the kernels would take them; raises otherwise."""
     if all(x.device.type == "cpu" for x in args):
-        return True
+        return "cpu"
     dev = args[0].device
-    if any(x.device != dev for x in args) or dev.type != "cuda":
+    if any(x.device != dev for x in args) or dev.type not in ("cuda", "meta"):
         raise ValueError(
-            "wkv6 takes all tensors on the CPU or all on one CUDA device; got "
+            "wkv6 takes all tensors on the CPU, on one CUDA device or on meta; got "
             + ", ".join(str(x.device) for x in args)
         )
     if any(x.dtype != torch.float32 for x in args):
@@ -86,16 +97,20 @@ def _on_cpu(args) -> bool:
         raise ValueError(
             f"the wkv6 kernels are built for head dims {KERNEL_HEAD_DIMS}, got {args[0].shape[-1]}"
         )
-    return False
+    return dev.type
 
 
 def _forward(r, k, v, w, u, state) -> tuple[torch.Tensor, torch.Tensor]:
     args = (r, k, v, w, u, state)
-    if _on_cpu(args):
-        return wkv6_ref(*args)
+    route = _route(args)
+    with work.kernel_call(work.wkv6(*r.shape)):
+        if route == "cpu":
+            return wkv6_ref(*args)
+        y = torch.empty_like(r)
+        s_fin = torch.empty_like(state)
+    if route == "meta":
+        return y, s_fin
     b, t, h, n = r.shape
-    y = torch.empty_like(r)
-    s_fin = torch.empty_like(state)
     with torch.cuda.device(r.device):
         rc = _kernel()(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -112,7 +127,8 @@ def wkv6_backward(r, k, v, w, u, state, dy, ds_fin) -> tuple[torch.Tensor, ...]:
     """Gradients (dr, dk, dv, dw, du, ds0) of ``wkv6(r, k, v, w, u, state)``
     given dy (B, T, H, N) and ds_fin (B, H, N, N); du is summed over batch
     and time.  CPU tensors take the plain reverse sweep; CUDA tensors launch
-    the backward kernel, under the forward kernel's conditions."""
+    the backward kernel, under the forward kernel's conditions; meta tensors
+    take its checks and allocations with no launch."""
     _check_shapes(r, k, v, w, u, state)
     if dy.shape != r.shape or ds_fin.shape != state.shape:
         raise ValueError(
@@ -120,23 +136,27 @@ def wkv6_backward(r, k, v, w, u, state, dy, ds_fin) -> tuple[torch.Tensor, ...]:
             f"{tuple(r.shape)} / the state {tuple(state.shape)}"
         )
     args = (r, k, v, w, u, state, dy, ds_fin)
-    if _on_cpu(args):
-        return wkv6_backward_ref(*args)
+    route = _route(args)
     b, t, h, n = r.shape
-    fn, chunk = _backward_kernel()
-    ckpt = torch.empty((b * h, -(-t // chunk), n, n), dtype=torch.float32, device=r.device)
-    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
-    du_part = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
-    ds0 = torch.empty_like(state)
-    with torch.cuda.device(r.device):
-        rc = fn(*(x.data_ptr() for x in (*args, ckpt, dr, dk, dv, dw, du_part, ds0)),
-                b, t, h, n, torch.cuda.current_stream(r.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"wkv6 backward kernel launch failed: {_error_string('wkv6_backward', rc)} ({rc})"
-        )
-    wkv6_backward.launches += 1
-    return dr, dk, dv, dw, du_part.sum(0), ds0
+    with work.kernel_call(work.wkv6_backward(b, t, h, n)):
+        if route == "cpu":
+            return wkv6_backward_ref(*args)
+        ckpt = torch.empty((b * h, -(-t // BACKWARD_CHUNK), n, n), dtype=torch.float32,
+                           device=r.device)
+        dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+        du_part = torch.empty((b, h, n), dtype=torch.float32, device=r.device)
+        ds0 = torch.empty_like(state)
+        if route == "cuda":
+            with torch.cuda.device(r.device):
+                rc = _backward_kernel()(
+                    *(x.data_ptr() for x in (*args, ckpt, dr, dk, dv, dw, du_part, ds0)),
+                    b, t, h, n, torch.cuda.current_stream(r.device).cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"wkv6 backward kernel launch failed: "
+                                   f"{_error_string('wkv6_backward', rc)} ({rc})")
+            wkv6_backward.launches += 1
+        del ckpt
+        return dr, dk, dv, dw, du_part.sum(0), ds0
 
 
 def _dense(g: torch.Tensor) -> torch.Tensor:
@@ -177,7 +197,8 @@ def wkv6(
 
     CPU tensors take the plain recurrence.  CUDA tensors launch the kernel,
     which takes contiguous float32 inputs on 16-byte boundaries with head
-    dim in ``KERNEL_HEAD_DIMS``; anything else raises.
+    dim in ``KERNEL_HEAD_DIMS``; anything else raises.  Meta tensors give
+    the outputs under the kernel's conditions, with no launch.
     """
     _check_shapes(r, k, v, w, u, state)
     args = (r, k, v, w, u, state)

@@ -6,7 +6,10 @@ Counterpart of ``repro/kernels/whitedata_filter/ops.py``, without its
 ``use_kernel`` and ``interpret`` switches: the device of the tensors decides.
 The kernel runs over the flat elements with no padding, so ``kept`` is
 ``ref.py``'s count for every tau; the reference's kernel path, which pads to
-a multiple of 256, counts the padding as kept when tau <= 0.
+a multiple of 256, counts the padding as kept when tau <= 0.  Tensors on the
+meta device take the kernel's checks and allocations with no launch.  Every
+call reports its work (``kernels.work``) to the active cost counter,
+whatever runs it.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, work
 from .ref import whitedata_filter_ref
 
 __all__ = ["whitedata_filter", "filter_gradient", "whitedata_filter_ref"]
@@ -40,22 +43,27 @@ def _error_string(code: int) -> str:
     return fn(code).decode()
 
 
-def _check(g: torch.Tensor, r: torch.Tensor) -> bool:
-    """Whether (g, r) takes the plain version (both on the CPU); raises on
-    what neither version takes."""
+def _route(g: torch.Tensor, r: torch.Tensor) -> str:
+    """``"cpu"`` where (g, r) takes the plain version (both on the CPU),
+    ``"cuda"`` where the kernel takes them, ``"meta"`` where it would;
+    raises on what neither version takes."""
     if g.shape != r.shape:
         raise ValueError(f"r has shape {tuple(r.shape)}, g has {tuple(g.shape)}")
     if g.device.type == "cpu" and r.device.type == "cpu":
-        return True
-    if g.device != r.device or g.device.type != "cuda":
-        raise ValueError("whitedata_filter takes g and r both on the CPU or both on one CUDA "
-                         f"device; got {g.device} and {r.device}")
+        return "cpu"
+    if g.device != r.device or g.device.type not in ("cuda", "meta"):
+        raise ValueError("whitedata_filter takes g and r both on the CPU, both on one CUDA "
+                         f"device or both on meta; got {g.device} and {r.device}")
     if g.dtype not in KERNEL_DTYPES or r.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the whitedata_filter kernel takes float32 or bfloat16 g and r; "
                         f"got {g.dtype} and {r.dtype}")
     if not (g.is_contiguous() and r.is_contiguous()):
         raise ValueError("the whitedata_filter kernel takes contiguous tensors only")
-    return False
+    return g.device.type
+
+
+def _work(g: torch.Tensor, r: torch.Tensor) -> work.Work:
+    return work.whitedata_filter(g.numel(), g.element_size(), r.element_size())
 
 
 def _tau_arg(tau, device: torch.device) -> tuple[torch.Tensor | None, float]:
@@ -74,10 +82,10 @@ def _tau_arg(tau, device: torch.device) -> tuple[torch.Tensor | None, float]:
 
 def _launch(g, r, tau_dev, tau_value, kept: torch.Tensor):
     """The kernel over g and r, adding its count into ``kept`` (an int32
-    element on g's device)."""
+    element on g's device); on meta, the outputs only."""
     send = torch.empty_like(g)
     new_r = torch.empty_like(r)
-    if g.numel() == 0:
+    if g.numel() == 0 or g.device.type == "meta":
         return send, new_r
     with torch.cuda.device(g.device):
         rc = _kernel()(
@@ -101,13 +109,16 @@ def whitedata_filter(
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel,
     which takes contiguous float32 or bfloat16 g and r (each its own);
-    anything else raises.
+    anything else raises.  Meta tensors give the outputs under the kernel's
+    conditions, with no launch.
     """
-    if _check(g, r):
-        return whitedata_filter_ref(g, r, tau)
-    tau_dev, tau_value = _tau_arg(tau, g.device)
-    kept = torch.zeros((), dtype=torch.int32, device=g.device)
-    send, new_r = _launch(g, r, tau_dev, tau_value, kept)
+    route = _route(g, r)
+    with work.kernel_call(_work(g, r)):
+        if route == "cpu":
+            return whitedata_filter_ref(g, r, tau)
+        tau_dev, tau_value = _tau_arg(tau, g.device)
+        kept = torch.zeros((), dtype=torch.int32, device=g.device)
+        send, new_r = _launch(g, r, tau_dev, tau_value, kept)
     return send, new_r, kept
 
 
@@ -160,11 +171,13 @@ def filter_gradient(grads, residuals, tau: torch.Tensor | float):
         if g.device != device or r.device != device:
             raise ValueError(f"filter_gradient takes every leaf on one device; got "
                              f"{g.device} and {r.device} beside {device}")
-        if _check(g, r):
-            s, nr, k = whitedata_filter_ref(g, r, tau)
-            next(slots).copy_(k)
-            return s, nr
-        return _launch(g, r, tau_dev, tau_value, next(slots))
+        route = _route(g, r)
+        with work.kernel_call(_work(g, r)):
+            if route == "cpu":
+                s, nr, k = whitedata_filter_ref(g, r, tau)
+                next(slots).copy_(k)
+                return s, nr
+            return _launch(g, r, tau_dev, tau_value, next(slots))
 
     send, new_r = _walk(grads, residuals, leaf)
     kept = counts.sum(dtype=torch.int32)

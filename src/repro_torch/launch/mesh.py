@@ -15,10 +15,16 @@ every rank stages to and from its device (``dist.collectives.PodGroup``),
 so several ranks can share one card.  NCCL refuses two ranks on one card,
 and ``DTensor`` on a gloo mesh holds no card tensors, so each rank keeps
 explicit local shards (``dist.inpod``).
+
+:func:`fake_mesh` builds one rank's view of a mesh of any size over
+torch's fake process group, whose collectives move nothing: the dry-run
+(``launch.dryrun``) runs one rank of the production meshes
+(:func:`production_mesh_shape`) in this process on the meta device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -29,7 +35,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 import torch
 import torch.distributed as dist
@@ -38,7 +44,7 @@ from torch.distributed.device_mesh import init_device_mesh
 from ..device import resolve_device
 
 __all__ = ["AXES", "COLLECTIVE_TIMEOUT_S", "Mesh", "check_mesh_shape", "make_mesh",
-           "rank_coords", "run_local_ranks"]
+           "rank_coords", "run_local_ranks", "production_mesh_shape", "fake_mesh"]
 
 AXES = ("pod", "data", "model")
 COLLECTIVE_TIMEOUT_S = 600
@@ -96,14 +102,53 @@ def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...] = AXES,
     if device.type == "cuda":       # without an index: the launcher's local rank, over the cards
         torch.cuda.set_device(device.index if device.index is not None else
                               int(os.environ.get("LOCAL_RANK", "0")) % torch.cuda.device_count())
+    groups = _mesh_groups(tuple(shape), tuple(axes))
+    mesh = Mesh(dict(zip(axes, shape)), rank_coords(dist.get_rank(), dict(zip(axes, shape))),
+                groups)
+    return mesh, groups
+
+
+def production_mesh_shape(multi_pod: bool = False, reduced: bool = False) -> tuple[int, int, int]:
+    """The reference's production mesh (``repro.launch.mesh``) in the
+    port's three axes: ``(16, 16)`` over (``data``, ``model``), or ``(2,
+    16, 16)`` across two pods; the ``reduced`` tier ``(4, 4)`` or ``(2, 2,
+    4)``, the same layout scaled down.  A single pod is ``(1, D, M)``."""
+    if reduced:
+        return (2, 2, 4) if multi_pod else (1, 4, 4)
+    return (2, 16, 16) if multi_pod else (1, 16, 16)
+
+
+def _mesh_groups(shape: tuple[int, ...], axes: tuple[str, ...]) -> dict[str, dist.ProcessGroup]:
+    """The ``pod``, ``data``, ``model`` and ``inpod`` groups of a mesh of
+    ``shape`` over the initialised process group."""
     device_mesh = init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(axes))
     groups = {axis: device_mesh.get_group(axis) for axis in axes}
     per_pod = math.prod(shape[1:])
     groups["inpod"], _ = dist.new_subgroups_by_enumeration(
         [list(range(p * per_pod, (p + 1) * per_pod)) for p in range(shape[0])])
-    mesh = Mesh(dict(zip(axes, shape)), rank_coords(dist.get_rank(), dict(zip(axes, shape))),
-                groups)
-    return mesh, groups
+    return groups
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: tuple[int, ...], rank: int = 0) -> Iterator[Mesh]:
+    """Rank ``rank``'s :class:`Mesh` of ``shape`` over torch's fake process
+    group (``FakeStore``, backend ``"fake"``), whose collectives return at
+    once and move nothing, with its groups built as :func:`make_mesh`
+    builds them; the group is destroyed on exit.  Raises when a process
+    group is already initialised."""
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh needs a process without a process group; one is "
+                           "initialised")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = math.prod(shape)
+    check_mesh_shape(tuple(shape), world, AXES)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    try:
+        sizes = dict(zip(AXES, shape))
+        yield Mesh(sizes, rank_coords(rank, sizes), _mesh_groups(tuple(shape), AXES))
+    finally:
+        dist.destroy_process_group()
 
 
 def rank_coords(rank: int, shape: dict[str, int]) -> dict[str, int]:

@@ -56,7 +56,7 @@ from .layers import (
 
 __all__ = [
     "init_params", "forward", "init_cache", "cast_params_", "param_dtypes",
-    "param_count", "region_leaves",
+    "param_count", "active_param_count", "region_leaves",
 ]
 
 # sub-trees of a layer that the model reads in f32 whatever the compute
@@ -316,6 +316,17 @@ def param_count(cfg: ModelConfig) -> int:
         return tree.numel()
 
     return count(init_params(cfg, None, "meta"))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters a token uses: an MoE block's ``n_experts - top_k``
+    unrouted experts left out (its shared experts are used)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    moe_blocks = sum(1 for b in cfg.block_list() if b.ffn == "moe")
+    per_expert = 3 * cfg.d_model * cfg.moe.d_expert
+    return total - moe_blocks * (cfg.moe.n_experts - cfg.moe.top_k) * per_expert
 
 
 def region_leaves(cfg: ModelConfig) -> frozenset[str]:

@@ -61,7 +61,10 @@ def _queue_positions(expert_idx: torch.Tensor, e: int) -> tuple[torch.Tensor, to
     """The rank of each (token, k) assignment in its expert's queue (T, K),
     and the (T * K, E) one-hot of the assignments."""
     t, k = expert_idx.shape
-    flat_oh = F.one_hot(expert_idx, e).reshape(t * k, e)
+    # F.one_hot's own scatter, without the range check it reads back to the
+    # host on the CPU alone: the same operations on every device
+    flat_oh = torch.zeros((t * k, e), dtype=torch.long, device=expert_idx.device).scatter_(
+        1, expert_idx.reshape(t * k, 1), 1)
     # a running count down the T*K assignments, taken along the last dim of
     # the (E, T*K) transpose (PyTorch scans a leading dim of a few dozen
     # columns on the card ~100x slower); integers, so the same values either way

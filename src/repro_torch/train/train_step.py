@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Callable
 
@@ -195,7 +196,10 @@ class SyncGrads:
             dense_values=float(stats.dense_values), sparse_values=float(stats.sparse_values),
             nonzero_sent=float(stats.nonzero_sent), bytes_sent=stats.bytes_sent)
         if cfg.moe is not None:
-            parts.update(moe_assigned=float(ctx.moe_assigned), moe_dropped=float(ctx.moe_dropped))
+            dropped = ctx.moe_dropped       # unknown on meta (the dry-run): the data decides
+            meta = isinstance(dropped, torch.Tensor) and dropped.is_meta
+            parts.update(moe_assigned=float(ctx.moe_assigned),
+                         moe_dropped=math.nan if meta else float(dropped))
         return out, loss, parts
 
 
