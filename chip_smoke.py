@@ -241,14 +241,35 @@ Phases, each of which fails the run (nonzero exit, no result line):
    prefill and decode steps, dry-run on meta over the fake process group:
    the bytes of the pod exchange, of the in-pod gathers and reduce-scatters
    and of the ``model`` sums and merges equal rank 0's counts there, to the
-   byte.
+   byte;
+32. the WAN sync plane: ``GeoCluster``'s epoch pipeline (OCC validation,
+   the white-data filter, the CRDT commit through ``crdt_merge``) on a YCSB
+   store of 10,000,000 records of 1000 B on the card (empty at the start:
+   no YCSB load phase), Zipf 0.99, 50/50
+   reads and updates, 4 operations a transaction, 10% rewrites; 5 nodes on
+   the paper's testbed trace at 120 Mbps, 1000 transactions a node an
+   epoch, kcenter, 20 epochs of flat, then of geococo.  Gated: (a) at
+   1,000,000 keys and 5 epochs, flat and geococo under the event and
+   barrier engines on the card equal to the same runs on the CPU (every
+   ``EpochStats`` and ``RunSummary`` field, ``FilterStats``, the message
+   matrix, both digests; modeled filter CPU); (b) at full size flat and
+   geococo end in the same state and value digests; (c) ``crdt_merge``
+   launched once an epoch (one commit each) in each main run, every other
+   kernel 0.  Printed: the store's set-up before the epochs and
+   ``run()``'s digests after them, each apart; each epoch's wall split
+   into host draws, the copy to the card with its gathers, device work and
+   host work (planner, schedules, simulator); committed and aborted (read,
+   write-write); WAN bytes and the white byte ratio; peak memory; the
+   device busy share over the first 5 epochs of a second geococo run, its
+   store built before (torch.profiler's device time against that window's
+   wall) and the commit kernel's device time against its bound.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13 and 15-30 each on an empty card after the phase
-before; phase 31 allocates nothing on the card.  Each phase prints its wall
-time.
+released, and phases 11, 13, 15-30 and 32 each on an empty card after the
+phase before; phase 31 allocates nothing on the card.  Each phase prints its
+wall time.
 
 The line before the last lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -508,6 +529,25 @@ MESH_PARTS = (
      "max_len": SPLIT_PROMPT + SPLIT_STEPS, "chunk": 512, "capacity": None, "zero": True,
      "serve": False},
 )
+# phase 32: the WAN sync plane (GeoCluster's epoch pipeline).  A YCSB store of
+# WAN_KEYS records of YCSB CoreWorkload's default record, 10 fields x 100
+# bytes (phase 10's), on the card: 10.0 GB of values, 0.25 GB of versions
+# and flags.  Zipf theta 0.99 (YCSB's zipfian constant), workload A's 50/50
+# read/update mix, 4 operations a transaction, 10% of writes rewriting the
+# key's current value (the null rule's white data), no hot set; 5 nodes on
+# the paper's testbed (examples/geo_database_sim.py: 2 Kalgan, 2 Hohhot,
+# 1 Hong Kong) at 120 Mbps, WAN_TXNS transactions a node an epoch, kcenter,
+# WAN_EPOCHS epochs of flat, then of geococo (cut from the 60 of the
+# example for the phase's 60 s); gate (a) at WAN_CHECK_KEYS keys and
+# WAN_CHECK_EPOCHS epochs, card against CPU; the device busy share over
+# WAN_PROFILE_EPOCHS epochs of a second geococo run
+WAN_KEYS, WAN_VALUE_BYTES, WAN_TXNS, WAN_EPOCHS = 10_000_000, 1000, 1000, 20
+WAN_CHECK_KEYS, WAN_CHECK_EPOCHS, WAN_PROFILE_EPOCHS = 1_000_000, 5, 5
+WAN_BANDWIDTH_MBPS, WAN_PHASE_LIMIT_S = 120.0, 60.0
+WAN_TESTBED = ((0.0, 1.5, 8.0, 8.5, 42.0), (1.5, 0.0, 8.2, 8.0, 43.0),
+               (8.0, 8.2, 0.0, 1.8, 38.0), (8.5, 8.0, 1.8, 0.0, 39.0),
+               (42.0, 43.0, 38.0, 39.0, 0.0))
+WAN_REGIONS = (0, 0, 1, 1, 2)
 # phase 31: the band that the card's peak memory over a step (after a reset)
 # must hold against the dry-run's peak of live storage: the caching
 # allocator rounds each block up to 512 bytes and keeps cuBLAS' workspaces,
@@ -3996,6 +4036,221 @@ def run_dryrun_check(card_steps: dict, tp_history: list, mesh_counts: dict) -> N
                {"model": MESH_STEPS * (dec["model"] + dec["merge"]), "merge": MESH_STEPS * dec["merge"]})
 
 
+def wan_cluster(strategy: str, barrier: bool, keys: int, device, *, modeled: bool):
+    """Phase 32's engine, generator and trace (the seeds of
+    ``examples/geo_database_sim_torch.py``)."""
+    import numpy as np
+
+    from repro_torch.core.latency import jitter_trace
+    from repro_torch.core.replication import EngineConfig, GeoCluster
+    from repro_torch.core.workload import YCSBConfig, YCSBGenerator
+
+    eng = GeoCluster(EngineConfig(n_nodes=len(WAN_REGIONS), sync_strategy=strategy,
+                                  planner="kcenter", barrier=barrier, modeled_cpu=modeled),
+                     bandwidth_mbps=WAN_BANDWIDTH_MBPS, seed=3, device=device)
+    gen = YCSBGenerator(YCSBConfig(n_keys=keys, theta=0.99, read_ratio=0.5, ops_per_txn=4,
+                                   value_bytes=WAN_VALUE_BYTES, rewrite_frac=0.1),
+                        len(WAN_REGIONS), seed=5, node_region=WAN_REGIONS)
+    trace = jitter_trace(np.array(WAN_TESTBED), max(WAN_EPOCHS, 2), np.random.default_rng(0))
+    return eng, gen, trace
+
+
+def wan_fields(rs) -> dict:
+    """Every field of a run's report but ``plan_time_s`` (a wall clock)."""
+    import numpy as np
+
+    return {"epochs": [dataclasses.asdict(e) for e in rs.epochs],
+            "summary": dataclasses.asdict(rs.summary),
+            "state_digest": rs.state_digest, "value_digest": rs.value_digest,
+            "msg_matrix": np.asarray(rs.msg_matrix).tolist(), "serve": rs.serve}
+
+
+def wan_check(dev) -> None:
+    """Phase 32 (a): flat and geococo under both engines on the card and on
+    the CPU at WAN_CHECK_KEYS keys and WAN_CHECK_EPOCHS epochs, modeled
+    filter CPU: every report field and both digests equal, one commit an
+    epoch through the kernel on the card."""
+    import torch
+
+    keys, epochs = WAN_CHECK_KEYS, WAN_CHECK_EPOCHS
+    from repro_torch.kernels.crdt_merge import ops as merge_ops
+
+    for strategy in ("flat", "geococo"):
+        for barrier in (False, True):
+            runs = {}
+            for device in (dev, "cpu"):
+                eng, gen, trace = wan_cluster(strategy, barrier, keys, device, modeled=True)
+                before = merge_ops.crdt_merge.launches
+                rs = eng.run(gen, trace, txns_per_node=WAN_TXNS, n_epochs=epochs)
+                runs[str(device)] = (wan_fields(rs), merge_ops.crdt_merge.launches - before)
+                del eng
+            (card, launches), (cpu, _) = runs[str(dev)], runs["cpu"]
+            differ = sorted(k for k in card if card[k] != cpu[k])
+            if differ:
+                fail(f"[32] (a) {strategy}, barrier={barrier}: the card's run differs from the "
+                     f"CPU's in {differ}")
+            if dev.type == "cuda" and launches != epochs:
+                fail(f"[32] (a) {strategy}: {launches} merge launches in {epochs} epochs (one "
+                     f"commit an epoch)")
+            print(f"[32] (a) {strategy}, barrier={barrier}, {keys:,} keys, {epochs} epochs: the "
+                  f"card's run equals the CPU's (every EpochStats and RunSummary field, "
+                  f"FilterStats, msg_matrix, digest {card['state_digest'][:12]}...); "
+                  f"{launches} merge launches in {epochs} epochs")
+            torch.cuda.empty_cache()
+
+
+def wan_times_text(times: list[dict]) -> str:
+    keys = ("draw_s", "copy_s", "device_s", "host_s")
+    tot = {k: sum(t[k] for t in times) * 1e3 for k in keys}
+    return (f"host draws {tot['draw_s']:.1f} ms, host-to-device copy and gathers "
+            f"{tot['copy_s']:.1f}, device work (validation, filters, commit) "
+            f"{tot['device_s']:.1f}, host (planner, schedules, simulator) {tot['host_s']:.1f}")
+
+
+@contextlib.contextmanager
+def merge_sizes():
+    """The rows of each ``crdt_merge`` call the store makes inside the
+    block: the name the store calls is bound to a wrapper that notes them
+    for the block's length (the launches are the kernel's own)."""
+    from repro_torch.core import crdt
+
+    sizes, inner = [], crdt.crdt_merge
+
+    def noting(a_val, *args):
+        sizes.append(a_val.shape[0])
+        return inner(a_val, *args)
+
+    crdt.crdt_merge = noting
+    try:
+        yield sizes
+    finally:
+        crdt.crdt_merge = inner
+
+
+def wan_store(eng, gen, dev) -> float:
+    """Build the engine's store on the card before its epochs; returns the
+    seconds it took."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.store = gen.table(dev)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def run_wan(dev, counters: dict) -> dict:
+    """Phase 32: the WAN sync plane at full size, flat then geococo.  Each
+    run's store is built before its epochs and timed apart, as are
+    ``run()``'s two digests after them; the device busy share and the
+    merge kernel's device time come from a profiled window of epochs alone."""
+    import torch
+
+    from repro_torch.kernels import work
+
+    t_phase = time.perf_counter()
+    memory_line("[32]", "start")
+    wan_check(dev)
+    print(f"[32] YCSB store of {WAN_KEYS:,} records x {WAN_VALUE_BYTES} B on the card, Zipf "
+          f"0.99, 50/50, 4 ops, rewrite 0.1; 5 nodes on the paper's testbed at "
+          f"{WAN_BANDWIDTH_MBPS:g} Mbps, {WAN_TXNS} transactions a node an epoch, "
+          f"{WAN_EPOCHS} epochs, kcenter, filter CPU measured on the card; the store starts "
+          f"empty (no YCSB load phase)")
+    runs = {}
+    for strategy in ("flat", "geococo"):
+        torch.cuda.reset_peak_memory_stats()
+        eng, gen, trace = wan_cluster(strategy, False, WAN_KEYS, dev, modeled=False)
+        setup_s = wan_store(eng, gen, dev)
+
+        def main_path():
+            t0 = time.perf_counter()
+            rs = eng.run(gen, trace, txns_per_node=WAN_TXNS, n_epochs=WAN_EPOCHS)
+            torch.cuda.synchronize()
+            return rs, time.perf_counter() - t0
+
+        with merge_sizes() as rows:
+            (rs, wall), counts = counted(counters, main_path)
+        peak = torch.cuda.max_memory_allocated()
+        others = {k: v for k, v in counts.items() if k != "crdt_merge" and v}
+        if others or counts["crdt_merge"] != WAN_EPOCHS:
+            fail(f"[32] (c) {strategy}: kernel counts {counts} in {WAN_EPOCHS} epochs (one "
+                 f"commit an epoch)")
+        epochs_s = sum(sum(t.values()) for t in eng.epoch_times)
+        bound_ms = sum(work_bound(work.crdt_merge(k, eng.store.words, 4))[0] for k in rows)
+        w = rs.white_stats
+        print(f"[32] {strategy}: store set-up {setup_s * 1e3:.1f} ms before the epochs; "
+              f"{WAN_EPOCHS} epochs {epochs_s * 1e3:.1f} ms ({epochs_s / WAN_EPOCHS * 1e3:.2f} ms "
+              f"an epoch): {wan_times_text(eng.epoch_times)}; then run()'s two digests "
+              f"{(wall - epochs_s) * 1e3:.1f} ms (its wall {wall * 1e3:.1f} ms less the epochs)")
+        for e, (st, t) in enumerate(zip(rs.epochs, eng.epoch_times)):
+            print(f"    epoch {e:2d}: draws {t['draw_s'] * 1e3:6.1f} ms, copy "
+                  f"{t['copy_s'] * 1e3:6.1f}, device {t['device_s'] * 1e3:6.1f}, host "
+                  f"{t['host_s'] * 1e3:6.1f}; committed {st.committed}, aborted {st.aborted}, "
+                  f"sync {st.sync_ms:.2f} ms, WAN {st.wan_bytes / 1e6:.3f} MB")
+        print(f"[32] {strategy}: committed {rs.committed:,}, aborted {rs.aborted:,} (read "
+              f"{rs.read_aborts}, write-write {rs.ww_aborts:,}); modeled {rs.throughput_tps:,.0f} "
+              f"txn/s; WAN {rs.wan_bytes / 1e6:.3f} MB; white bytes {w.white_byte_ratio:.4f} "
+              f"(aborted {w.aborted_updates:,}, null {w.null_updates:,}, stale "
+              f"{w.stale_updates}, duplicate {w.duplicate_updates}); {len(eng.store):,} keys "
+              f"present; peak {peak / 1e9:.2f} GB")
+        print(f"[32] (c) {strategy}: crdt_merge {counts['crdt_merge']} launches in {WAN_EPOCHS} "
+              f"epochs (one commit an epoch), every other kernel 0; {min(rows):,}-{max(rows):,} "
+              f"rows a merge, bound {bound_ms:.4f} ms in all (bytes, kernels.work.crdt_merge)")
+        runs[strategy] = {"rs": rs, "epochs_s": epochs_s, "setup_s": setup_s,
+                          "digests_s": wall - epochs_s, "times": list(eng.epoch_times),
+                          "launches": counts["crdt_merge"], "bound_ms": bound_ms, "peak": peak}
+        del eng, gen
+        torch.cuda.empty_cache()
+    flat, geo = runs["flat"]["rs"], runs["geococo"]["rs"]
+    if (flat.state_digest, flat.value_digest) != (geo.state_digest, geo.value_digest):
+        fail("[32] (b) flat and geococo end in different states")
+    print(f"[32] (b) flat and geococo: the same state digest {geo.state_digest[:16]}... and "
+          f"value digest {geo.value_digest[:16]}...; WAN bytes {flat.wan_bytes / 1e6:.3f} -> "
+          f"{geo.wan_bytes / 1e6:.3f} MB ({geo.wan_bytes / flat.wan_bytes - 1:+.1%})")
+    # the device busy share: the profiler's device time over the first
+    # epochs of a second geococo run (the same seeds: the same work), its
+    # store built before and no digests, against the wall of that window
+    eng, gen, trace = wan_cluster("geococo", False, WAN_KEYS, dev, modeled=False)
+    wan_store(eng, gen, dev)
+    window = {}
+
+    def epochs():
+        t0 = time.perf_counter()
+        for e in range(WAN_PROFILE_EPOCHS):
+            batch = gen.to_batch(gen.draw(e, WAN_TXNS), eng.store)
+            eng.run_epoch(e, batch, trace[e % len(trace)])
+        torch.cuda.synchronize()
+        window["wall_ms"] = (time.perf_counter() - t0) * 1e3
+
+    with merge_sizes() as rows:
+        dev_ms, by_name = profile_step(epochs)
+    wall_ms = window["wall_ms"]
+    unprofiled_ms = sum(sum(t.values()) for t in runs["geococo"]["times"][:WAN_PROFILE_EPOCHS]) * 1e3
+    kernel_ms = sum(ms for name, ms in by_name.items() if "crdt_merge_kernel" in name)
+    bound_ms = sum(work_bound(work.crdt_merge(k, eng.store.words, 4))[0] for k in rows)
+    if len(rows) != WAN_PROFILE_EPOCHS:
+        fail(f"[32] the profiled window made {len(rows)} merges in {WAN_PROFILE_EPOCHS} epochs")
+    if dev_ms is not None:
+        print(f"[32] geococo's first {WAN_PROFILE_EPOCHS} epochs, profiled: {dev_ms:.2f} ms of "
+              f"device time (torch.profiler) in {wall_ms:.1f} ms of that window's wall: busy "
+              f"{dev_ms / wall_ms:.1%} (the same epochs unprofiled in the main run: "
+              f"{unprofiled_ms:.1f} ms); the largest:")
+        for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"    {kms:9.3f} ms  {name[:100]}")
+        print(f"[32] the commit's kernel in those epochs: {len(rows)} launches of "
+              f"crdt_merge_kernel, {kernel_ms:.4f} ms of device time (torch.profiler), "
+              f"{kernel_ms / len(rows) * 1e3:.2f} us each against a bound of "
+              f"{bound_ms / len(rows) * 1e3:.2f} us (bytes): {bound_ms / kernel_ms:.1%}")
+    runs["geococo"]["kernel_ms"], runs["geococo"]["kernel_bound_ms"] = kernel_ms, bound_ms
+    del eng, gen
+    torch.cuda.empty_cache()
+    memory_line("[32]", "end")
+    took = time.perf_counter() - t_phase
+    print(f"[32] took {took:.1f} s (limit {WAN_PHASE_LIMIT_S:g} s)")
+    return {"launches": sum(r["launches"] for r in runs.values()), "runs": runs,
+            "busy": None if dev_ms is None else dev_ms / wall_ms, "seconds": took}
+
+
 def run_topk(shapes, dev, filter_ms: float) -> dict:
     """Phase 20: geococo's chunked top-k (``topk_select``: f32 g + r, per
     chunk of 2048 the top 10% by magnitude, the sent values and the new
@@ -4234,6 +4489,13 @@ def main() -> None:
     t_phase = time.perf_counter()
     run_dryrun_check(card_steps, tp_history, mesh_counts)
     print(f"  [31] took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 32. the WAN sync plane: a 10M-record YCSB store on the emptied card
+    torch.cuda.empty_cache()
+    wan = run_wan(dev, counters)
+    entries["crdt_merge"]["wan_launches"] = wan["launches"]
+    entries["crdt_merge"]["wan_kernel_ms"] = wan["runs"]["geococo"]["kernel_ms"]
+    entries["crdt_merge"]["wan_bound_ms"] = wan["runs"]["geococo"]["kernel_bound_ms"]
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

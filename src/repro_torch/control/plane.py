@@ -1,15 +1,14 @@
 """The network control plane: telemetry -> damped replan -> typed events
 (the port's own copy of ``repro.control.plane``).
 
-In the reference one :class:`ControlPlane` instance feeds *both*
-synchronization planes (paper Sec 4.2 "Delay Monitoring" + "Re-group
-damping"): the WAN plane observes
+One :class:`ControlPlane` instance feeds *both* synchronization planes
+(paper Sec 4.2 "Delay Monitoring" + "Re-group damping"): the **WAN plane**
+(``repro_torch.core.replication.GeoCluster``) observes
 :class:`~repro_torch.control.events.PlanChanged` to route write-set rounds
 over the new grouping, and the **device plane**
-(``repro_torch.train.trainer.Trainer`` here) observes
+(``repro_torch.train.trainer.Trainer``) observes
 :class:`~repro_torch.control.events.RelayOrderChanged` to recompute
-``relay_psum``'s ring order and rebuild its step.  The port carries the
-device plane only.
+``relay_psum``'s ring order and rebuild its step.
 
 Event flow::
 
@@ -29,6 +28,7 @@ round for the plan to react.
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Iterable
 
 import numpy as np
@@ -181,7 +181,9 @@ class ControlPlane:
     plan_fn:
         ``fn(lat) -> GroupPlan``.  ``None`` installs a default
         :func:`~repro_torch.core.planner.best_plan` search ranked by the
-        plan's latency cost.
+        plan's latency cost; a consumer with better context (the WAN
+        engine's bandwidth/payload-aware ranking) may :meth:`bind_planner`
+        over the default once.
     replan_threshold / replan_sustain:
         The damped Replanner's sustained-deviation policy (Sec 4.2).
     degrade_factor / recover_factor / degrade_sustain / link_alpha:
@@ -218,6 +220,7 @@ class ControlPlane:
         self.tiv = tiv
         self.ring_tiv = ring_tiv
         self.tiv_margin = tiv_margin
+        self._default_planner = plan_fn is None
         if plan_fn is None:
             plan_fn = lambda lat: best_plan(  # noqa: E731
                 lat, tiv=tiv, tiv_margin=tiv_margin, method=planner,
@@ -245,6 +248,27 @@ class ControlPlane:
         self.relay_full_searches = 0
         self.relay_incremental_searches = 0
         self.relay_incremental_evals = 0
+
+    # -- planner binding --------------------------------------------------------
+
+    def bind_planner(self, plan_fn: Callable[[np.ndarray], GroupPlan]) -> bool:
+        """Install a consumer's plan function, a bound method, over the
+        built-in default.
+
+        Returns True when installed.  A non-default planner (explicit
+        ``plan_fn`` at construction, or a previous bind) is kept — so on a
+        shared plane, the first engine's payload-aware planner wins and
+        later consumers just subscribe.  The method is held weakly: the
+        plane keeps no consumer alive (a dropped engine frees its device
+        store at once), and once the consumer is gone the default plans
+        again.
+        """
+        if not self._default_planner:
+            return False
+        default, ref = self.replanner.plan_fn, weakref.WeakMethod(plan_fn)
+        self.replanner.plan_fn = lambda lat: (ref() or default)(lat)
+        self._default_planner = False
+        return True
 
     # -- subscriptions ----------------------------------------------------------
 

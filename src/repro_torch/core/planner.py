@@ -17,11 +17,10 @@ All strategies return a :class:`GroupPlan`; the plan's paper-objective cost
 ``T = max_j(intra_j) + max(inter)`` is computed by :func:`plan_cost`.
 
 This is the port's own copy of ``repro.core.planner``, registered in the
-port's registry (``repro_torch.core.strategies``).  One part is not here:
-:func:`best_plan`'s ranking by a simulated round makespan
-(``payload_bytes``) runs the reference's WAN simulator, which the port does
-not carry, so it raises rather than rank differently; the simulator's other
-ranking options are not taken at all.
+port's registry (``repro_torch.core.strategies``); :func:`best_plan` ranks
+by a simulated round makespan through the port's copies of the schedule
+builders and the WAN simulator (``repro_torch.core.schedule``,
+``.simulator``).
 """
 
 from __future__ import annotations
@@ -493,6 +492,9 @@ def best_plan(
     method: str = "milp",
     time_limit_s: float = 5.0,
     payload_bytes: float | None = None,
+    bandwidth_mbps: float | np.ndarray | None = None,
+    filter_keep: float = 1.0,
+    barrier: bool = False,
 ) -> GroupPlan:
     """GeoCoCo's guided planner: search k in the band around k*, keep the best.
 
@@ -501,22 +503,39 @@ def best_plan(
     GeoCoCo must fall back to direct transmission — the adaptive behavior
     the paper's robustness results (Fig. 17) rely on.
 
-    Plans are ranked by :func:`plan_cost`.  A ``payload_bytes`` asks for the
-    reference's ranking by a simulated round makespan (its WAN simulator,
-    which the port does not carry) and raises ``ValueError``.
+    When ``payload_bytes`` is given, candidates are ranked by the simulated
+    round makespan (latency + NIC-contended serialization, with
+    ``filter_keep`` modeling the aggregator-side payload reduction) instead
+    of the latency-only MILP objective — the "balance latency and resource
+    utilization" behavior of the Planner (Sec 4.1).  The makespan is the
+    event-driven **transfer-DAG critical path** by default, so grouping
+    decisions reward cross-stage overlap (a plan whose fast groups exchange
+    while slow groups still gather scores better than the phase-sum would
+    suggest); pass ``barrier=True`` to rank by the legacy barrier phase-sum
+    instead (what a barrier engine will actually execute).  The MILP itself
+    stays Algorithm 1's latency formulation.  (The reference's ranking by
+    two stitched epochs, ``streaming=True``, comes with the streaming
+    engine, ROADMAP §1, W1.)
 
     The guided band is the ~order-of-magnitude planning-cost reduction vs
     exhaustive k in [2, N-1] claimed in Sec 6.4.
     """
-    if payload_bytes is not None:
-        raise ValueError(
-            "best_plan(payload_bytes=...) ranks plans by the WAN simulator's "
-            "round makespan; the WAN plane is not ported, pass payload_bytes=None "
-            "for the latency objective"
-        )
-
     def rank(p: GroupPlan) -> float:
-        return plan_cost(lat, p, tiv=tiv, tiv_margin=tiv_margin)
+        if payload_bytes is None:
+            return plan_cost(lat, p, tiv=tiv, tiv_margin=tiv_margin)
+        from .schedule import hierarchical_schedule
+        from .simulator import WANSimulator
+
+        bw = np.inf if bandwidth_mbps is None else bandwidth_mbps
+        sim = WANSimulator(lat, bw, barrier=barrier)
+        gp = np.array(
+            [sum(payload_bytes for _ in g) * filter_keep for g in p.groups]
+        )
+        sched = hierarchical_schedule(
+            p, payload_bytes, group_payload_bytes=gp, lat=lat,
+            tiv=tiv, tiv_margin=tiv_margin,
+        )
+        return sim.run(sched).makespan_ms
 
     try:
         plan_fn = _strategies.get("planner", method)
