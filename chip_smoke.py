@@ -19,8 +19,14 @@ Phases, each of which fails the run (nonzero exit, no result line):
    both WKV6 kernels also at phase 19's share of a pod, (1, 4096, 64, 64);
    the RG-LRU scan forward also at the training shape, both RG-LRU
    kernels at two D that are no multiple of their 32-channel tiles; the
-   white-data filter and the CRDT merge also at small odd shapes, bit for
-   bit;
+   white-data filter and the CRDT merge also at small odd shapes, the merge
+   also at 1 to 3,400 rows (fewer than 32 rows a warp), bit for bit; the
+   join straight into a table's rows (``crdt_merge_rows``, the WAN commit's
+   kernel) at small odd shapes and at a commit's 3,400 rows of 250 int32
+   words into a table of 10,000,000 rows, whole tables bit for bit, and its
+   device time there against its bound, the library's four calls, and the
+   gather, dense merge and scatter it replaced, beside the dense merge's at
+   (3,400, 250);
 4. rwkv6-7b at full width and depth, on its f32 weights: prefill + stepwise
    decode against the full forward, in f32 and bf16 compute, each decode
    position gated against a multiple of the noise floor measured in the same
@@ -243,7 +249,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    and of the ``model`` sums and merges equal rank 0's counts there, to the
    byte;
 32. the WAN sync plane: ``GeoCluster``'s epoch pipeline (OCC validation,
-   the white-data filter, the CRDT commit through ``crdt_merge``) on a YCSB
+   the white-data filter, the CRDT commit through ``crdt_merge_rows``) on a YCSB
    store of 10,000,000 records of 1000 B on the card (empty at the start:
    no YCSB load phase), Zipf 0.99, 50/50
    reads and updates, 4 operations a transaction, 10% rewrites; 5 nodes on
@@ -253,7 +259,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    barrier engines on the card equal to the same runs on the CPU (every
    ``EpochStats`` and ``RunSummary`` field, ``FilterStats``, the message
    matrix, both digests; modeled filter CPU); (b) at full size flat and
-   geococo end in the same state and value digests; (c) ``crdt_merge``
+   geococo end in the same state and value digests; (c) ``crdt_merge_rows``
    launched once an epoch (one commit each) in each main run, every other
    kernel 0.  Printed: the store's set-up before the epochs and
    ``run()``'s digests after them, each apart; each epoch's wall split
@@ -262,7 +268,8 @@ Phases, each of which fails the run (nonzero exit, no result line):
    write-write); WAN bytes and the white byte ratio; peak memory; the
    device busy share over the first 5 epochs of a second geococo run, its
    store built before (torch.profiler's device time against that window's
-   wall) and the commit kernel's device time against its bound.
+   wall) and the commit kernel's device time, launch by launch, against the
+   bound of the rows each took.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
@@ -404,6 +411,9 @@ TAU = 1.6449        # keeps 10% of N(0, 1): the reference's SyncConfig.density
 # 1,000 bytes, 250 int32 words), 10M records, replication factor 3; ~1% of
 # the rows tie on the top version with different payloads
 YCSB_ROWS, YCSB_WORDS, REPLICAS = 10_000_000, 250, 3
+# phase 3: the join of a WAN commit (phase 32 joins ~3,400 distinct rows an
+# epoch) into a table of YCSB_ROWS rows
+JOIN_ROWS, JOIN_TABLE_ROWS = 3400, YCSB_ROWS
 TIE_SHARE = 0.01
 MERGE_CHUNK = 1_000_000
 # phases 15-17: (a) and (d) at GRAD_BATCH x GRAD_SEQ, f32 with TF32 off;
@@ -1065,14 +1075,24 @@ def merge_payload(gen, m: int, n: int, dtype):
     return torch.randn((m, n), generator=gen, device=gen.device).to(dtype)
 
 
+def merge_batch(gen, m: int, n: int):
+    """An (m, n) int32 payload and its (m,) int32 versions in [0, 8)."""
+    import torch
+
+    return (merge_payload(gen, m, n, torch.int32),
+            torch.randint(0, 8, (m,), generator=gen, device=gen.device, dtype=torch.int32))
+
+
 def phase_merge_small(ops, ref, dev) -> list:
-    """The CRDT merge vs plain at small shapes and one of 65536 rows, in
+    """The CRDT merge vs plain at small shapes, at 1 to 3,400 rows (where
+    the launcher gives a warp fewer than 32 rows) and at 65536 rows, in
     every payload dtype, bit for bit."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(3)
     errs = []
-    for m, n in [(7, 250), (64, 100), (65536, 256)]:
+    shapes = [(7, 250), (64, 100), (65536, 256), (1, 250), (31, 7), (33, 100), (JOIN_ROWS, 250)]
+    for m, n in shapes:
         for dt in (torch.float32, torch.bfloat16, torch.int32):
             va, vb = (merge_payload(gen, m, n, dt) for _ in range(2))
             ra, rb = (torch.randint(0, 8, (m,), generator=gen, device=dev, dtype=torch.int32)
@@ -1080,8 +1100,121 @@ def phase_merge_small(ops, ref, dev) -> list:
             (ov, orr), (wv, wr) = ops.crdt_merge(va, ra, vb, rb), ref(va, ra, vb, rb)
             errs.append(same_bits(f"crdt_merge ({m}, {n}) {dt} values", ov, wv))
             errs.append(same_bits(f"crdt_merge ({m}, {n}) {dt} versions", orr, wr))
-    print("  crdt_merge: (7, 250), (64, 100), (65536, 256) in f32, bf16 and int32: bit-exact")
+    print(f"  crdt_merge: {', '.join(map(str, shapes))} in f32, bf16 and int32: bit-exact")
     return errs
+
+
+def join_bound(k: int, n: int, size: int, taken: int) -> tuple[float, str]:
+    """Least time for one join of k rows of n elements into a table, of
+    which ``taken`` rows are taken (``kernels.work.crdt_merge_rows``)."""
+    from repro_torch.kernels import work
+
+    return work_bound(work.crdt_merge_rows(k, n, size, taken))
+
+
+def join_inputs(gen, r: int, k: int, n: int, dtype, *, top: int = 8, taken: bool = False):
+    """k distinct rows of a table of r rows (row r - 1 among them), their
+    ranks and a batch of k rows of n elements; with ``taken`` every row's
+    new rank above its current one."""
+    import torch
+
+    dev = gen.device
+    rest = torch.randperm(r - 1, generator=gen, device=dev)[:k - 1]
+    rows = torch.cat([torch.full((1,), r - 1, device=dev), rest])
+    cur = torch.randint(0, top, (k,), generator=gen, device=dev, dtype=torch.int32)
+    new = (cur + torch.randint(1, top, (k,), generator=gen, device=dev, dtype=torch.int32)
+           if taken else torch.randint(0, top, (k,), generator=gen, device=dev, dtype=torch.int32))
+    return rows, cur, merge_payload(gen, k, n, dtype), new
+
+
+def join_library(table, rows, cur, new_val, new):
+    """The join in four PyTorch calls: a yardstick, used nowhere in the port."""
+    import torch
+
+    out = torch.where((new > cur)[:, None], new_val, table.index_select(0, rows))
+    table.index_copy_(0, rows, out)
+    return torch.maximum(cur, new)
+
+
+def gather_merge_scatter(merge, table, rows, cur, new_val, new):
+    """The commit's join before the indexed kernel: the table's rows
+    gathered, merged with the batch by the dense kernel, scattered back."""
+    out_val, out_rank = merge(table[rows], cur, new_val, new)
+    table[rows] = out_val
+    return out_rank
+
+
+def phase_join(ops, merge_ref, rows_ref, dev) -> dict:
+    """The join straight into a table's rows vs plain: small odd shapes in
+    every payload dtype, a table at an odd offset, then a commit's
+    JOIN_ROWS rows of YCSB_WORDS int32 words into a JOIN_TABLE_ROWS-row
+    table, whole tables bit for bit.  Then, at that size, the device time of
+    the join, of the dense merge, of the library's four calls and of the
+    gather, merge and scatter the join replaced, over input sets past the
+    L2, against their bounds."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs = []
+
+    def check(label, table, rows, cur, new_val, new):
+        want = table.clone()
+        want_rank = rows_ref(want, rows, cur, new_val, new)
+        got_rank = ops.crdt_merge_rows(table, rows, cur, new_val, new)
+        errs.append(same_bits(f"crdt_merge_rows {label} table", table, want))
+        errs.append(same_bits(f"crdt_merge_rows {label} out_rank", got_rank, want_rank))
+
+    shapes = [(64, 7, 250), (1000, 1000, 100), (300, 1, 7), (5000, 33, 3)]
+    for r, k, n in shapes:
+        for dt in (torch.float32, torch.bfloat16, torch.int32):
+            check(f"({r}, {k}, {n}) {dt}", merge_payload(gen, r, n, dt),
+                  *join_inputs(gen, r, k, n, dt))
+    buf = merge_payload(gen, 1, 300 * 250 + 8, torch.bfloat16).view(-1)
+    check("(300, 40, 250) bf16 at offset 3", buf[3:3 + 300 * 250].view(300, 250),
+          *join_inputs(gen, 300, 40, 250, torch.bfloat16))
+    print(f"  crdt_merge_rows: (R, K, N) {', '.join(map(str, shapes))} in f32, bf16 and int32, "
+          f"and a bf16 table at an odd offset: whole tables bit-exact")
+
+    r, k, n = JOIN_TABLE_ROWS, JOIN_ROWS, YCSB_WORDS
+    table = torch.randint(-2**31, 2**31 - 1, (r, n), generator=gen, device=dev,
+                          dtype=torch.int32)
+    check(f"({r}, {k}, {n}) int32", table, *join_inputs(gen, r, k, n, torch.int32))
+    print(f"  crdt_merge_rows: {k:,} rows of {n} int32 words into a table of {r:,} rows "
+          f"({table.numel() * 4 / 1e9:.2f} GB): the whole table bit-exact")
+    torch.cuda.empty_cache()
+
+    # ---- device times at a commit's size, every row taken (a commit into a
+    # store that holds few of its keys); rows drawn anew for each input set
+    set_bytes = 2 * (4 * k * n + 4 * k)
+    n_sets = max(12, -(-2 * L2_BYTES // set_bytes))
+    sets = [join_inputs(gen, r, k, n, torch.int32, top=2**20, taken=True) for _ in range(n_sets)]
+    bound_ms, bound_by = join_bound(k, n, 4, k)
+
+    def over_sets(fn, *lead):
+        return device_ms([functools.partial(fn, *lead, table, *s) for s in sets])
+
+    times = {"join": over_sets(ops.crdt_merge_rows),
+             "library": over_sets(join_library),
+             "gather_merge_scatter": over_sets(gather_merge_scatter, ops.crdt_merge)}
+    plain_ms = device_ms([functools.partial(rows_ref, table, *sets[0])], reps=3)
+    eager_ms = dispatch_ms(lambda: ops.crdt_merge_rows(table, *sets[0]))
+    print(f"  crdt_merge_rows ({k:,} of {r:,} rows, {n} int32 words, every row taken): "
+          f"{times['join'] * 1e3:.2f} us on the device over {n_sets} input sets "
+          f"({eager_ms * 1e3:.2f} us per eager call), bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by}), {bound_ms / times['join']:.1%} of bound; the gather, dense merge "
+          f"and scatter it replaced {times['gather_merge_scatter'] * 1e3:.2f} us; the library's "
+          f"index_select + where + maximum + index_copy_ {times['library'] * 1e3:.2f} us; "
+          f"plain {plain_ms * 1e3:.2f} us")
+    del sets, table
+    torch.cuda.empty_cache()
+    dense = time_kernel("crdt_merge", ops.crdt_merge, merge_ref,
+                        lambda m, n: (*merge_batch(gen, m, n), *merge_batch(gen, m, n)),
+                        (k, n), lambda m, n: 2 * (4 * m * n + 4 * m),
+                        lambda m, n: merge_bound(m, n, 4))
+    main = {"shape": [r, k, n], "ms": times["join"], "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "eager_call_ms": eager_ms}
+    return {"errs": errs, "main": main, "library_ms": times["library"],
+            "gather_merge_scatter_ms": times["gather_merge_scatter"], "dense": dense}
 
 
 def profile_device(label: str, run, n_runs: int,
@@ -2060,10 +2193,12 @@ def counts_text(counts: dict) -> str:
     return ", ".join(f"{k} {v}" for k, v in counts.items() if v) or "none"
 
 
-def profile_step(run) -> tuple[float | None, dict]:
-    """Device time of ``run()`` by kernel name (ms) from torch.profiler,
-    which records the device's activity only: the host's events of a step
-    of ~10^5 launches took longer to gather than the step."""
+def profile_launches(run, name: str) -> tuple[float | None, dict, list]:
+    """Device time of ``run()`` and its device time by kernel name (ms) from
+    torch.profiler, which records the device's activity only: the host's
+    events of a step of ~10^5 launches took longer to gather than the step.
+    Also the device time (ms) of each launch of the kernels whose names hold
+    ``name``, in order."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2074,8 +2209,15 @@ def profile_step(run) -> tuple[float | None, dict]:
         torch.cuda.synchronize()
     by_name = {e.key: getattr(e, "self_device_time_total", 0.0) / 1e3 for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA}
+    each = [getattr(e, "self_device_time_total", 0.0) / 1e3 for e in prof.events()
+            if e.device_type == DeviceType.CUDA and name and name in e.name]
     total = sum(by_name.values())
-    return (total if total > 0 else None), by_name
+    return (total if total > 0 else None), by_name, each
+
+
+def profile_step(run) -> tuple[float | None, dict]:
+    """``profile_launches`` without the launches."""
+    return profile_launches(run, "")[:2]
 
 
 def drive_steps(cfg, tcfg, batch: int, seq: int, dev) -> list[dict]:
@@ -3158,7 +3300,8 @@ def kernel_counters() -> dict:
 
     return {"wkv6": wkv6_ops.wkv6, "wkv6_backward": wkv6_ops.wkv6_backward,
             "rglru_scan": rglru_ops.rglru_scan, "rglru_scan_backward": rglru_ops.rglru_scan_backward,
-            "whitedata_filter": filter_ops.whitedata_filter, "crdt_merge": merge_ops.crdt_merge}
+            "whitedata_filter": filter_ops.whitedata_filter, "crdt_merge": merge_ops.crdt_merge,
+            "crdt_merge_rows": merge_ops.crdt_merge_rows}
 
 
 def tp_yardstick(out_dir: str) -> dict:
@@ -4069,7 +4212,7 @@ def wan_check(dev) -> None:
     """Phase 32 (a): flat and geococo under both engines on the card and on
     the CPU at WAN_CHECK_KEYS keys and WAN_CHECK_EPOCHS epochs, modeled
     filter CPU: every report field and both digests equal, one commit an
-    epoch through the kernel on the card."""
+    epoch through the join kernel on the card."""
     import torch
 
     keys, epochs = WAN_CHECK_KEYS, WAN_CHECK_EPOCHS
@@ -4080,9 +4223,9 @@ def wan_check(dev) -> None:
             runs = {}
             for device in (dev, "cpu"):
                 eng, gen, trace = wan_cluster(strategy, barrier, keys, device, modeled=True)
-                before = merge_ops.crdt_merge.launches
+                before = merge_ops.crdt_merge_rows.launches
                 rs = eng.run(gen, trace, txns_per_node=WAN_TXNS, n_epochs=epochs)
-                runs[str(device)] = (wan_fields(rs), merge_ops.crdt_merge.launches - before)
+                runs[str(device)] = (wan_fields(rs), merge_ops.crdt_merge_rows.launches - before)
                 del eng
             (card, launches), (cpu, _) = runs[str(dev)], runs["cpu"]
             differ = sorted(k for k in card if card[k] != cpu[k])
@@ -4090,12 +4233,12 @@ def wan_check(dev) -> None:
                 fail(f"[32] (a) {strategy}, barrier={barrier}: the card's run differs from the "
                      f"CPU's in {differ}")
             if dev.type == "cuda" and launches != epochs:
-                fail(f"[32] (a) {strategy}: {launches} merge launches in {epochs} epochs (one "
+                fail(f"[32] (a) {strategy}: {launches} join launches in {epochs} epochs (one "
                      f"commit an epoch)")
             print(f"[32] (a) {strategy}, barrier={barrier}, {keys:,} keys, {epochs} epochs: the "
                   f"card's run equals the CPU's (every EpochStats and RunSummary field, "
                   f"FilterStats, msg_matrix, digest {card['state_digest'][:12]}...); "
-                  f"{launches} merge launches in {epochs} epochs")
+                  f"{launches} join launches in {epochs} epochs")
             torch.cuda.empty_cache()
 
 
@@ -4108,23 +4251,27 @@ def wan_times_text(times: list[dict]) -> str:
 
 
 @contextlib.contextmanager
-def merge_sizes():
-    """The rows of each ``crdt_merge`` call the store makes inside the
-    block: the name the store calls is bound to a wrapper that notes them
-    for the block's length (the launches are the kernel's own)."""
+def join_calls():
+    """``(rows, rows taken)`` of each ``crdt_merge_rows`` call the store
+    makes inside the block, filled in when it ends: the name the store
+    calls is bound to a wrapper that keeps each call's ranks for the block's
+    length (the launches are the kernel's own), and the rows taken are
+    counted after it, so the main path makes no launch or sync more."""
     from repro_torch.core import crdt
 
-    sizes, inner = [], crdt.crdt_merge
+    calls, kept, inner = [], [], crdt.crdt_merge_rows
 
-    def noting(a_val, *args):
-        sizes.append(a_val.shape[0])
-        return inner(a_val, *args)
+    def noting(table, rows, cur_rank, *args):
+        out_rank = inner(table, rows, cur_rank, *args)
+        kept.append((rows.numel(), cur_rank, out_rank))
+        return out_rank
 
-    crdt.crdt_merge = noting
+    crdt.crdt_merge_rows = noting
     try:
-        yield sizes
+        yield calls
     finally:
-        crdt.crdt_merge = inner
+        crdt.crdt_merge_rows = inner
+        calls.extend((k, int((out != cur).sum())) for k, cur, out in kept)
 
 
 def wan_store(eng, gen, dev) -> float:
@@ -4143,10 +4290,9 @@ def run_wan(dev, counters: dict) -> dict:
     """Phase 32: the WAN sync plane at full size, flat then geococo.  Each
     run's store is built before its epochs and timed apart, as are
     ``run()``'s two digests after them; the device busy share and the
-    merge kernel's device time come from a profiled window of epochs alone."""
+    join kernel's device time, call by call against the bound of the rows
+    each took, come from a profiled window of epochs alone."""
     import torch
-
-    from repro_torch.kernels import work
 
     t_phase = time.perf_counter()
     memory_line("[32]", "start")
@@ -4168,15 +4314,15 @@ def run_wan(dev, counters: dict) -> dict:
             torch.cuda.synchronize()
             return rs, time.perf_counter() - t0
 
-        with merge_sizes() as rows:
+        with join_calls() as calls:
             (rs, wall), counts = counted(counters, main_path)
         peak = torch.cuda.max_memory_allocated()
-        others = {k: v for k, v in counts.items() if k != "crdt_merge" and v}
-        if others or counts["crdt_merge"] != WAN_EPOCHS:
+        others = {k: v for k, v in counts.items() if k != "crdt_merge_rows" and v}
+        if others or counts["crdt_merge_rows"] != WAN_EPOCHS:
             fail(f"[32] (c) {strategy}: kernel counts {counts} in {WAN_EPOCHS} epochs (one "
                  f"commit an epoch)")
         epochs_s = sum(sum(t.values()) for t in eng.epoch_times)
-        bound_ms = sum(work_bound(work.crdt_merge(k, eng.store.words, 4))[0] for k in rows)
+        bound_ms = sum(join_bound(k, eng.store.words, 4, taken)[0] for k, taken in calls)
         w = rs.white_stats
         print(f"[32] {strategy}: store set-up {setup_s * 1e3:.1f} ms before the epochs; "
               f"{WAN_EPOCHS} epochs {epochs_s * 1e3:.1f} ms ({epochs_s / WAN_EPOCHS * 1e3:.2f} ms "
@@ -4193,12 +4339,15 @@ def run_wan(dev, counters: dict) -> dict:
               f"(aborted {w.aborted_updates:,}, null {w.null_updates:,}, stale "
               f"{w.stale_updates}, duplicate {w.duplicate_updates}); {len(eng.store):,} keys "
               f"present; peak {peak / 1e9:.2f} GB")
-        print(f"[32] (c) {strategy}: crdt_merge {counts['crdt_merge']} launches in {WAN_EPOCHS} "
-              f"epochs (one commit an epoch), every other kernel 0; {min(rows):,}-{max(rows):,} "
-              f"rows a merge, bound {bound_ms:.4f} ms in all (bytes, kernels.work.crdt_merge)")
+        print(f"[32] (c) {strategy}: crdt_merge_rows {counts['crdt_merge_rows']} launches in "
+              f"{WAN_EPOCHS} epochs (one commit an epoch), every other kernel 0; "
+              f"{min(k for k, _ in calls):,}-{max(k for k, _ in calls):,} rows a join, "
+              f"{min(t for _, t in calls):,}-{max(t for _, t in calls):,} taken; bound "
+              f"{bound_ms:.4f} ms in all (bytes of the rows taken, kernels.work.crdt_merge_rows)")
         runs[strategy] = {"rs": rs, "epochs_s": epochs_s, "setup_s": setup_s,
                           "digests_s": wall - epochs_s, "times": list(eng.epoch_times),
-                          "launches": counts["crdt_merge"], "bound_ms": bound_ms, "peak": peak}
+                          "launches": counts["crdt_merge_rows"], "bound_ms": bound_ms,
+                          "peak": peak}
         del eng, gen
         torch.cuda.empty_cache()
     flat, geo = runs["flat"]["rs"], runs["geococo"]["rs"]
@@ -4222,14 +4371,15 @@ def run_wan(dev, counters: dict) -> dict:
         torch.cuda.synchronize()
         window["wall_ms"] = (time.perf_counter() - t0) * 1e3
 
-    with merge_sizes() as rows:
-        dev_ms, by_name = profile_step(epochs)
+    with join_calls() as calls:
+        dev_ms, by_name, each_ms = profile_launches(epochs, "crdt_merge_rows_kernel")
     wall_ms = window["wall_ms"]
     unprofiled_ms = sum(sum(t.values()) for t in runs["geococo"]["times"][:WAN_PROFILE_EPOCHS]) * 1e3
-    kernel_ms = sum(ms for name, ms in by_name.items() if "crdt_merge_kernel" in name)
-    bound_ms = sum(work_bound(work.crdt_merge(k, eng.store.words, 4))[0] for k in rows)
-    if len(rows) != WAN_PROFILE_EPOCHS:
-        fail(f"[32] the profiled window made {len(rows)} merges in {WAN_PROFILE_EPOCHS} epochs")
+    kernel_ms = sum(each_ms)
+    bounds = [join_bound(k, eng.store.words, 4, taken)[0] for k, taken in calls]
+    bound_ms = sum(bounds)
+    if len(calls) != WAN_PROFILE_EPOCHS:
+        fail(f"[32] the profiled window made {len(calls)} joins in {WAN_PROFILE_EPOCHS} epochs")
     if dev_ms is not None:
         print(f"[32] geococo's first {WAN_PROFILE_EPOCHS} epochs, profiled: {dev_ms:.2f} ms of "
               f"device time (torch.profiler) in {wall_ms:.1f} ms of that window's wall: busy "
@@ -4237,10 +4387,13 @@ def run_wan(dev, counters: dict) -> dict:
               f"{unprofiled_ms:.1f} ms); the largest:")
         for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
             print(f"    {kms:9.3f} ms  {name[:100]}")
-        print(f"[32] the commit's kernel in those epochs: {len(rows)} launches of "
-              f"crdt_merge_kernel, {kernel_ms:.4f} ms of device time (torch.profiler), "
-              f"{kernel_ms / len(rows) * 1e3:.2f} us each against a bound of "
-              f"{bound_ms / len(rows) * 1e3:.2f} us (bytes): {bound_ms / kernel_ms:.1%}")
+        print(f"[32] the commit's kernel in those epochs: {len(each_ms)} launches of "
+              f"crdt_merge_rows_kernel, {kernel_ms:.4f} ms of device time (torch.profiler), "
+              f"against a bound of {bound_ms:.4f} ms (bytes of the rows taken): "
+              f"{bound_ms / kernel_ms:.1%}; each:")
+        for (k, taken), ms, bound in zip(calls, each_ms, bounds):
+            print(f"    {k:,} rows, {taken:,} taken: {ms * 1e3:.2f} us against "
+                  f"{bound * 1e3:.3f} us, {bound / ms:.1%}")
     runs["geococo"]["kernel_ms"], runs["geococo"]["kernel_bound_ms"] = kernel_ms, bound_ms
     del eng, gen
     torch.cuda.empty_cache()
@@ -4325,7 +4478,7 @@ def main() -> None:
         fail("no CUDA device: this script runs only on the card")
     from repro_torch.kernels import _build
     from repro_torch.kernels.crdt_merge import ops as merge_ops
-    from repro_torch.kernels.crdt_merge.ref import crdt_merge_ref
+    from repro_torch.kernels.crdt_merge.ref import crdt_merge_ref, crdt_merge_rows_ref
     from repro_torch.kernels.rglru_scan import ops as rglru_ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_backward_ref, rglru_scan_ref
     from repro_torch.kernels.rwkv6_wkv import ops as wkv6_ops
@@ -4358,11 +4511,12 @@ def main() -> None:
                                                            rglru_scan_backward_ref)}
     filter_errs = phase_filter_small(filter_ops, whitedata_filter_ref, dev)
     merge_errs = phase_merge_small(merge_ops, crdt_merge_ref, dev)
-    counters = {"wkv6": wkv6_ops.wkv6, "wkv6_backward": wkv6_ops.wkv6_backward,
-                "rglru_scan": rglru_ops.rglru_scan,
-                "rglru_scan_backward": rglru_ops.rglru_scan_backward,
-                "whitedata_filter": filter_ops.whitedata_filter,
-                "crdt_merge": merge_ops.crdt_merge}
+    join = phase_join(merge_ops, crdt_merge_ref, crdt_merge_rows_ref, dev)
+    entries["crdt_merge_rows"] = kernel_entry(
+        "crdt_merge_rows", "src/repro_torch/csrc/crdt_merge.cu",
+        "src/repro/kernels/crdt_merge/crdt_merge.py:24", join["errs"], join["main"],
+        library_ms=join["library_ms"], gather_merge_scatter_ms=join["gather_merge_scatter_ms"])
+    counters = kernel_counters()
 
     print(f"  [3] took {time.perf_counter() - t_phase:.1f} s")
 
@@ -4395,7 +4549,7 @@ def main() -> None:
     entries["crdt_merge"] = kernel_entry(
         "crdt_merge", "src/repro_torch/csrc/crdt_merge.cu",
         "src/repro/kernels/crdt_merge/crdt_merge.py:24", merge_errs, merge["main"],
-        library_ms=merge["main"]["plain_ms"])
+        library_ms=merge["main"]["plain_ms"], commit_size=join["dense"])
     entries["crdt_merge"]["launches"] = merge["launches"]["crdt_merge"]
 
     # ---- 11-14. the global-attention decoders: minitron-8b, then granite-moe-3b-a800m
@@ -4493,9 +4647,9 @@ def main() -> None:
     # ---- 32. the WAN sync plane: a 10M-record YCSB store on the emptied card
     torch.cuda.empty_cache()
     wan = run_wan(dev, counters)
-    entries["crdt_merge"]["wan_launches"] = wan["launches"]
-    entries["crdt_merge"]["wan_kernel_ms"] = wan["runs"]["geococo"]["kernel_ms"]
-    entries["crdt_merge"]["wan_bound_ms"] = wan["runs"]["geococo"]["kernel_bound_ms"]
+    entries["crdt_merge_rows"]["launches"] = wan["launches"]
+    entries["crdt_merge_rows"]["wan_kernel_ms"] = wan["runs"]["geococo"]["kernel_ms"]
+    entries["crdt_merge_rows"]["wan_bound_ms"] = wan["runs"]["geococo"]["kernel_bound_ms"]
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

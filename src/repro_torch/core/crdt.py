@@ -5,7 +5,7 @@
 reference's, host objects.  The replicated store is a device table,
 :class:`CRDTTable`, in place of the reference's dict ``DeltaCRDTStore``:
 per-key last-writer-wins registers under the total version order
-``(epoch, seq, node)``, joined through ``kernels.crdt_merge.crdt_merge``
+``(epoch, seq, node)``, joined through ``kernels.crdt_merge.crdt_merge_rows``
 (the CUDA kernel on the card).  The join is the lattice max by version, so
 it is commutative, associative and idempotent (ACI) and a batch merges to
 the same state whatever its order and multiplicity.
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.crdt_merge.ops import crdt_merge
+from ..kernels.crdt_merge.ops import crdt_merge_rows
 
 __all__ = ["Version", "Update", "merge_updates", "CRDTTable", "load_entries",
            "lexsort", "version_rank", "lex_greater"]
@@ -271,9 +271,10 @@ class CRDTTable:
         rows changed.
 
         Each row is first reduced to its top version (the first of equal
-        tops, as sequential applies keep it); the table's rows at those keys
-        are gathered, joined with the batch through ``crdt_merge`` and
-        scattered back.  The kernel compares int32 versions: each side's
+        tops, as sequential applies keep it), so the rows are distinct; the
+        batch is joined straight into the table's rows through
+        ``crdt_merge_rows``, which writes only the rows it takes.  The
+        kernel compares int32 versions: each side's
         ``(epoch, seq, node)`` becomes its dense rank among the ``2K``
         versions of this join, an order key exact for every pair it
         compares whatever the triples' range (``Version.ZERO`` ranks lowest;
@@ -294,10 +295,9 @@ class CRDTTable:
         cur_ver = self.versions[keys]
         rank = version_rank(torch.cat([cur_ver, new_ver])).to(torch.int32)
         cur_rank, new_rank = rank[:k].contiguous(), rank[k:].contiguous()
-        out_val, out_rank = crdt_merge(self.values[keys], cur_rank, new_val, new_rank)
+        out_rank = crdt_merge_rows(self.values, keys, cur_rank, new_val, new_rank)
         self.merges += 1
         took = out_rank != cur_rank
-        self.values[keys] = out_val
         self.versions[keys] = torch.where(took[:, None], new_ver, cur_ver)
         self.present[keys] = self.present[keys] | took
         return int(took.sum())

@@ -21,7 +21,7 @@ import contextlib
 from typing import Iterator, NamedTuple
 
 __all__ = ["Work", "wkv6", "wkv6_backward", "rglru", "rglru_backward", "whitedata_filter",
-           "crdt_merge", "kernel_call", "hidden", "COUNTERS"]
+           "crdt_merge", "crdt_merge_rows", "kernel_call", "hidden", "COUNTERS"]
 
 
 class Work(NamedTuple):
@@ -68,6 +68,17 @@ def crdt_merge(m: int, n: int, size: int) -> Work:
     more), both version vectors read, the payload and out_ver written; one
     compare per row."""
     return Work(m, 2 * m * n * size + 3 * 4 * m)
+
+
+def crdt_merge_rows(k: int, n: int, size: int, taken: int | None = None) -> Work:
+    """k rows of n elements joined into a table in place: each row's index
+    and two ranks read and out_rank written, and the payload of each row
+    the batch takes read from the batch and written into the table (a row
+    the table keeps moves none); one compare per row.  The wrapper counts
+    every row taken, the most a call can move; a bound from a run's data
+    passes the rows it took."""
+    taken = k if taken is None else taken
+    return Work(k, 2 * taken * n * size + (3 * 4 + 8) * k)
 
 
 # the active cost counters, innermost last (``launch.cost.CostMode`` pushes

@@ -1,5 +1,6 @@
-"""The CUDA CRDT merge kernel against its plain PyTorch version, on the
-card, bit for bit.
+"""The CUDA CRDT merge kernels against their plain PyTorch versions, on the
+card, bit for bit: the dense merge, and the join straight into a table's
+rows (``crdt_merge_rows``).
 
 The kernel has no CPU or interpret mode, so these tests skip without a
 card; each decides that when it runs.  This file imports no JAX, so it runs
@@ -12,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.crdt_merge import ops
-from repro_torch.kernels.crdt_merge.ref import crdt_merge_ref
+from repro_torch.kernels.crdt_merge.ref import crdt_merge_ref, crdt_merge_rows_ref
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int32": torch.int32}
 
@@ -56,6 +57,18 @@ def _check(va, ra, vb, rb):
                                  (1, 1), (1000, 0)])
 def test_kernel_matches_plain(card, m, n, dtype):
     gen = torch.Generator(card).manual_seed(m + n)
+    va, vb = (_payload((m, n), DTYPES[dtype], gen, card) for _ in range(2))
+    _check(va, _versions(m, gen, card), vb, _versions(m, gen, card))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [250, 7])
+@pytest.mark.parametrize("m", [1, 31, 33, 3400])
+def test_kernel_at_small_m(card, m, n, dtype):
+    """Below ~4 blocks an SM of 32-row groups the launcher gives a warp
+    fewer rows, down to one."""
+    gen = torch.Generator(card).manual_seed(m * n)
     va, vb = (_payload((m, n), DTYPES[dtype], gen, card) for _ in range(2))
     _check(va, _versions(m, gen, card), vb, _versions(m, gen, card))
 
@@ -133,3 +146,111 @@ def test_kernel_refuses_what_it_does_not_take(card):
         ops.crdt_merge(va, ra, vb.cpu(), rb)
     with pytest.raises(ValueError, match="one CUDA device"):
         ops.crdt_merge(va, ra.cpu(), vb, rb)
+
+
+# ---------------------------------------------------------------------------
+# the join straight into a table's rows
+# ---------------------------------------------------------------------------
+
+
+def _distinct_rows(r, k, gen, device):
+    return torch.randperm(r, generator=gen, device=device)[:k]
+
+
+def _check_rows(table, rows, cur, new_val, new):
+    """The kernel on ``table`` against the plain version on a copy: the
+    whole table and out_rank bit for bit, one launch."""
+    want_table = table.clone()
+    want_rank = crdt_merge_rows_ref(want_table, rows, cur.int(), new_val, new.int())
+    before = ops.crdt_merge_rows.launches
+    out_rank = ops.crdt_merge_rows(table, rows, cur, new_val, new)
+    torch.cuda.synchronize()
+    assert ops.crdt_merge_rows.launches == before + 1
+    assert out_rank.dtype == torch.int32 and torch.equal(out_rank, want_rank)
+    assert torch.equal(_bits(table), _bits(want_table))
+    return out_rank
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", [7, 100, 250])
+@pytest.mark.parametrize("k", [1, 31, 33, 3400, 65536])
+def test_join_matches_plain(card, k, n, dtype):
+    """Rows of 7 bf16 (14 B: 2-byte words), 100 (16-byte words in f32 and
+    int32, 8 in bf16) and 250 (8-byte words in f32 and int32, 4 in bf16)."""
+    r = 100_000
+    gen = torch.Generator(card).manual_seed(k + n)
+    table = _payload((r, n), DTYPES[dtype], gen, card)
+    rows = _distinct_rows(r - 1, k, gen, card)
+    rows[0] = r - 1
+    _check_rows(table, rows, _versions(k, gen, card), _payload((k, n), DTYPES[dtype], gen, card),
+                _versions(k, gen, card))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("offset", [1, 3])
+def test_join_into_a_table_at_an_odd_offset(card, dtype, offset):
+    """The table a view ``offset`` elements into a buffer: narrower words,
+    and nothing of the buffer outside the table written."""
+    r, k, n = 5000, 700, 250
+    gen = torch.Generator(card).manual_seed(offset)
+    buf = _payload((r * n + 16,), DTYPES[dtype], gen, card)
+    before = buf.clone()
+    table = buf[offset:offset + r * n].view(r, n)
+    _check_rows(table, _distinct_rows(r, k, gen, card), _versions(k, gen, card),
+                _payload((k, n), DTYPES[dtype], gen, card), _versions(k, gen, card))
+    assert torch.equal(_bits(buf[:offset]), _bits(before[:offset]))
+    assert torch.equal(_bits(buf[offset + r * n:]), _bits(before[offset + r * n:]))
+
+
+@pytest.mark.gpu
+def test_join_ties_keep_the_table_and_int64_ranks(card):
+    gen = torch.Generator(card).manual_seed(4)
+    table = _payload((2000, 250), torch.int32, gen, card)
+    rows = _distinct_rows(2000, 300, gen, card)
+    ver = _versions(300, gen, card)
+    want = table.clone()
+    out_rank = ops.crdt_merge_rows(table, rows, ver, _payload((300, 250), torch.int32, gen, card),
+                                   ver.clone())
+    assert torch.equal(out_rank, ver) and torch.equal(table, want)
+    cur = torch.randint(-2**40, 2**40, (300,), generator=gen, device=card)
+    new = torch.randint(-2**40, 2**40, (300,), generator=gen, device=card)
+    _check_rows(table, rows, cur, _payload((300, 250), torch.int32, gen, card), new)
+
+
+@pytest.mark.gpu
+def test_join_into_the_last_row_of_a_10m_row_table(card):
+    """Row 10^7 - 1 of 10^7 rows of 250 int32 words starts past 2^31
+    elements: every offset has to be 64-bit."""
+    r, n = 10_000_000, 250
+    table = torch.zeros((r, n), dtype=torch.int32, device=card)
+    gen = torch.Generator(card).manual_seed(5)
+    rows = torch.tensor([r - 1, 0, 8_600_000], device=card)
+    new_val = _payload((3, n), torch.int32, gen, card)
+    cur = torch.zeros(3, dtype=torch.int32, device=card)
+    ops.crdt_merge_rows(table, rows, cur, new_val, cur + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(table[rows], new_val)
+    assert int((table != 0).any(dim=1).sum()) == int((new_val != 0).any(dim=1).sum())
+
+
+@pytest.mark.gpu
+def test_join_refuses_what_it_does_not_take(card):
+    gen = torch.Generator(card).manual_seed(0)
+    table = _payload((8, 32), torch.float32, gen, card)
+    rows = torch.tensor([1, 5], device=card)
+    new_val = _payload((2, 32), torch.float32, gen, card)
+    cur, new = _versions(2, gen, card), _versions(2, gen, card)
+    with pytest.raises(TypeError):
+        ops.crdt_merge_rows(table.double(), rows, cur, new_val.double(), new)
+    with pytest.raises(TypeError):
+        ops.crdt_merge_rows(table.half(), rows, cur, new_val.half(), new)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.crdt_merge_rows(table, rows, cur, new_val.t().contiguous().t(), new)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.crdt_merge_rows(table[:, :16], rows, cur, new_val[:, :16].contiguous(), new)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.crdt_merge_rows(table, rows.cpu(), cur, new_val, new)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ops.crdt_merge_rows(table, rows, cur, new_val.cpu(), new)

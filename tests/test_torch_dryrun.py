@@ -196,6 +196,14 @@ def _kernel_case(name: str, device: str):
         gg, r = t(11, 13, dtype=torch.bfloat16), t(11, 13)
         return (lambda: filter_ops.whitedata_filter(gg, r, 0.5), work.whitedata_filter(143, 2, 4),
                 filter_ops.whitedata_filter)
+    if name == "crdt_merge_rows":
+        table = torch.randint(0, 100, (20, 6), generator=g, dtype=torch.int32).to(device)
+        rows = torch.randperm(20, generator=g)[:9].to(device)
+        new_val = torch.randint(0, 100, (9, 6), generator=g, dtype=torch.int32).to(device)
+        cur = torch.randint(0, 5, (9,), generator=g, dtype=torch.int32).to(device)
+        new = torch.randint(0, 5, (9,), generator=g, dtype=torch.int32).to(device)
+        return (lambda: (merge_ops.crdt_merge_rows(table, rows, cur, new_val, new),),
+                work.crdt_merge_rows(9, 6, 4), merge_ops.crdt_merge_rows)
     m, w = 9, 6
     va = torch.randint(0, 100, (m, w), generator=g, dtype=torch.int32).to(device)
     vb = torch.randint(0, 100, (m, w), generator=g, dtype=torch.int32).to(device)
@@ -206,7 +214,7 @@ def _kernel_case(name: str, device: str):
 
 
 KERNELS = ["wkv6", "wkv6_backward", "rglru_scan", "rglru_scan_backward", "whitedata_filter",
-           "crdt_merge"]
+           "crdt_merge", "crdt_merge_rows"]
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])

@@ -2,7 +2,7 @@
 epochs through ``GeoCluster`` on ``cuda`` and on the CPU give every
 ``EpochStats`` field, the message matrix and both digests equal, for
 ``flat``, ``hier`` and ``geococo`` under both engines, with every commit
-joined through the CUDA merge kernel; the store's join, the validation and
+joined through the CUDA join kernel (``crdt_merge_rows``); the store's join, the validation and
 the filter alone on random batches, card against CPU.
 
 The merge kernel has no CPU or interpret mode, so these tests skip without
@@ -52,9 +52,9 @@ def run(device, strategy: str, barrier: bool, epochs: int = 4):
 @pytest.mark.parametrize("barrier", [False, True])
 @pytest.mark.parametrize("strategy", ["flat", "hier", "geococo"])
 def test_cluster_on_the_card_equals_its_cpu_run(card, strategy, barrier):
-    before = merge_ops.crdt_merge.launches
+    before = merge_ops.crdt_merge_rows.launches
     eng, got = run(card, strategy, barrier)
-    launches = merge_ops.crdt_merge.launches - before
+    launches = merge_ops.crdt_merge_rows.launches - before
     _, want = run("cpu", strategy, barrier)
     for a, b in zip(want.epochs, got.epochs):
         assert dataclasses.asdict(b) == dataclasses.asdict(a), a.epoch
