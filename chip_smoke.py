@@ -26,7 +26,9 @@ Phases, each of which fails the run (nonzero exit, no result line):
    words into a table of 10,000,000 rows, whole tables bit for bit, and its
    device time there against its bound, the library's four calls, and the
    gather, dense merge and scatter it replaced, beside the dense merge's at
-   (3,400, 250);
+   (3,400, 250); the join also at TPC-C's commit, 34,000 rows of 30 int32
+   words (120 B) into a table of 10,000,000 rows, bit for bit, timed
+   against its bound and the library's four calls;
 4. rwkv6-7b at full width and depth, on its f32 weights: prefill + stepwise
    decode against the full forward, in f32 and bf16 compute, each decode
    position gated against a multiple of the noise floor measured in the same
@@ -250,31 +252,45 @@ Phases, each of which fails the run (nonzero exit, no result line):
    byte;
 32. the WAN sync plane: ``GeoCluster``'s epoch pipeline (OCC validation,
    the white-data filter, the CRDT commit through ``crdt_merge_rows``) on a YCSB
-   store of 10,000,000 records of 1000 B on the card (empty at the start:
-   no YCSB load phase), Zipf 0.99, 50/50
+   store of 10,000,000 records of 1000 B on the card, every record loaded
+   before epoch 0 (YCSB's load phase), Zipf 0.99, 50/50
    reads and updates, 4 operations a transaction, 10% rewrites; 5 nodes on
    the paper's testbed trace at 120 Mbps, 1000 transactions a node an
    epoch, kcenter, 20 epochs of flat, then of geococo.  Gated: (a) at
-   1,000,000 keys and 5 epochs, flat and geococo under the event and
+   1,000,000 loaded keys and 5 epochs, flat and geococo under the event and
    barrier engines on the card equal to the same runs on the CPU (every
    ``EpochStats`` and ``RunSummary`` field, ``FilterStats``, the message
    matrix, both digests; modeled filter CPU); (b) at full size flat and
    geococo end in the same state and value digests; (c) ``crdt_merge_rows``
    launched once an epoch (one commit each) in each main run, every other
-   kernel 0.  Printed: the store's set-up before the epochs and
-   ``run()``'s digests after them, each apart; each epoch's wall split
+   kernel 0.  Printed: the host's SHA-256 rate; the store's set-up and load
+   before the epochs and ``run()``'s two digests (one pass) after them,
+   each apart, and the state digest alone; each epoch's wall split
    into host draws, the copy to the card with its gathers, device work and
    host work (planner, schedules, simulator); committed and aborted (read,
    write-write); WAN bytes and the white byte ratio; peak memory; the
-   device busy share over the first 5 epochs of a second geococo run, its
-   store built before (torch.profiler's device time against that window's
+   device busy share over the first 5 epochs of a third run (geococo), its
+   store loaded before (torch.profiler's device time against that window's
    wall) and the commit kernel's device time, launch by launch, against the
-   bound of the rows each took.
+   bound of the rows each took;
+33. TPC-C on the card: (a) ``benchmarks/bench_throughput.py``'s regime (the
+   paper's testbed trace, 10 Gbps LAN / 15 Mbps WAN, 100 warehouses x 50
+   items, remote 0.25, 40 transactions a node, MILP, 10 epochs), the four
+   mixes under flat and geococo on the card equal to the same runs on the
+   CPU as in 32 (a), flat and geococo one state; (b) 100 warehouses x
+   100,000 items (STOCK's rows, TPC-C clause 1.3.1) of 120 B loaded before
+   epoch 0, TPCC-A, remote 0.10, phase 32's testbed at 120 Mbps, 1000
+   transactions a node an epoch, kcenter, 10 epochs of flat, then of
+   geococo, gated and printed as 32 (b), (c), with tpmTotal and the
+   NewOrder count; (d) (b)'s settings from an empty store with the
+   filter's CPU modeled, flat then geococo, one state: printed in the form
+   in which ``tests/tpcc_full_reference.py`` prints the reference's runs
+   on the CPU, and set beside (b)'s runs.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13, 15-30 and 32 each on an empty card after the
+released, and phases 11, 13, 15-30, 32 and 33 each on an empty card after the
 phase before; phase 31 allocates nothing on the card.  Each phase prints its
 wall time.
 
@@ -414,6 +430,9 @@ YCSB_ROWS, YCSB_WORDS, REPLICAS = 10_000_000, 250, 3
 # phase 3: the join of a WAN commit (phase 32 joins ~3,400 distinct rows an
 # epoch) into a table of YCSB_ROWS rows
 JOIN_ROWS, JOIN_TABLE_ROWS = 3400, YCSB_ROWS
+# and TPC-C's commit (phase 33 joins ~34,000 distinct rows an epoch) of 120-byte
+# rows, 30 int32 words
+TPCC_JOIN_ROWS, TPCC_WORDS = 34_000, 30
 TIE_SHARE = 0.01
 MERGE_CHUNK = 1_000_000
 # phases 15-17: (a) and (d) at GRAD_BATCH x GRAD_SEQ, f32 with TF32 off;
@@ -541,8 +560,9 @@ MESH_PARTS = (
 )
 # phase 32: the WAN sync plane (GeoCluster's epoch pipeline).  A YCSB store of
 # WAN_KEYS records of YCSB CoreWorkload's default record, 10 fields x 100
-# bytes (phase 10's), on the card: 10.0 GB of values, 0.25 GB of versions
-# and flags.  Zipf theta 0.99 (YCSB's zipfian constant), workload A's 50/50
+# bytes (phase 10's), on the card, every record loaded before epoch 0 (YCSB's
+# load phase, CoreWorkload's recordcount): 10.0 GB of values, 0.33 GB of
+# versions, lengths and flags.  Zipf theta 0.99 (YCSB's zipfian constant), workload A's 50/50
 # read/update mix, 4 operations a transaction, 10% of writes rewriting the
 # key's current value (the null rule's white data), no hot set; 5 nodes on
 # the paper's testbed (examples/geo_database_sim.py: 2 Kalgan, 2 Hohhot,
@@ -553,11 +573,34 @@ MESH_PARTS = (
 # WAN_PROFILE_EPOCHS epochs of a second geococo run
 WAN_KEYS, WAN_VALUE_BYTES, WAN_TXNS, WAN_EPOCHS = 10_000_000, 1000, 1000, 20
 WAN_CHECK_KEYS, WAN_CHECK_EPOCHS, WAN_PROFILE_EPOCHS = 1_000_000, 5, 5
-WAN_BANDWIDTH_MBPS, WAN_PHASE_LIMIT_S = 120.0, 60.0
+# the phase's limit: 60 s on a store that started empty; a loaded store adds
+# its load and each run's two digests over ~10.2 GB a stream, hashed on the
+# host at its SHA-256 rate (~10 s a run), and the gate's CPU runs' digests
+WAN_BANDWIDTH_MBPS, WAN_PHASE_LIMIT_S = 120.0, 150.0
 WAN_TESTBED = ((0.0, 1.5, 8.0, 8.5, 42.0), (1.5, 0.0, 8.2, 8.0, 43.0),
                (8.0, 8.2, 0.0, 1.8, 38.0), (8.5, 8.0, 1.8, 0.0, 39.0),
                (42.0, 43.0, 38.0, 39.0, 0.0))
 WAN_REGIONS = (0, 0, 1, 1, 2)
+# phases 32 and 33: the seed of the values loaded before epoch 0
+LOAD_SEED = 7
+# phase 33: TPC-C on the card.  (a) benchmarks/bench_throughput.py's regime
+# (the paper's 5-node testbed trace with Kalgan and Hohhot one region and
+# Hong Kong the other, 10 Gbps LAN / 15 Mbps WAN, 100 warehouses x 50 items,
+# remote 0.25, TPCC_CHECK_TXNS transactions a node, MILP), TPCC_CHECK_EPOCHS
+# epochs of each mix, card against CPU; (b) the database at full size:
+# TPCC_WAREHOUSES (examples/geo_database_sim.py:52) x TPCC_ITEMS (TPC-C
+# v5.11 clause 1.3.1: STOCK holds W x 100,000 rows) rows of 120 B
+# (NewOrder's width), every row loaded before epoch 0, TPCC-A (the paper's
+# write-intensive mix), remote 0.10 (TPCCConfig's default), phase 32's
+# testbed at 120 Mbps, TPCC_TXNS transactions a node an epoch, kcenter,
+# TPCC_EPOCHS epochs of flat, then of geococo; (d) the same from an empty
+# store with the filter's CPU modeled, as tests/tpcc_full_reference.py runs
+# the reference
+TPCC_WAREHOUSES, TPCC_ITEMS, TPCC_VALUE_BYTES = 100, 100_000, 120
+TPCC_TXNS, TPCC_EPOCHS = 1000, 10
+TPCC_CHECK_TXNS, TPCC_CHECK_EPOCHS = 40, 10
+TPCC_BENCH_REGIONS = (0, 0, 0, 0, 1)
+TPCC_MIXES_ORDER = ("TPCC-A", "TPCC-B", "TPCC-C", "TPCC-D")
 # phase 31: the band that the card's peak memory over a step (after a reset)
 # must hold against the dry-run's peak of live storage: the caching
 # allocator rounds each block up to 512 bytes and keeps cuBLAS' workspaces,
@@ -1207,6 +1250,8 @@ def phase_join(ops, merge_ref, rows_ref, dev) -> dict:
           f"plain {plain_ms * 1e3:.2f} us")
     del sets, table
     torch.cuda.empty_cache()
+    tpcc = join_timed(ops, rows_ref, gen, check, r, TPCC_JOIN_ROWS, TPCC_WORDS,
+                      "TPC-C's commit")
     dense = time_kernel("crdt_merge", ops.crdt_merge, merge_ref,
                         lambda m, n: (*merge_batch(gen, m, n), *merge_batch(gen, m, n)),
                         (k, n), lambda m, n: 2 * (4 * m * n + 4 * m),
@@ -1214,7 +1259,36 @@ def phase_join(ops, merge_ref, rows_ref, dev) -> dict:
     main = {"shape": [r, k, n], "ms": times["join"], "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "eager_call_ms": eager_ms}
     return {"errs": errs, "main": main, "library_ms": times["library"],
-            "gather_merge_scatter_ms": times["gather_merge_scatter"], "dense": dense}
+            "gather_merge_scatter_ms": times["gather_merge_scatter"], "dense": dense,
+            "tpcc": tpcc}
+
+
+def join_timed(ops, rows_ref, gen, check, r: int, k: int, n: int, label: str) -> dict:
+    """The join of ``k`` rows of ``n`` int32 words into an ``r``-row table:
+    the whole table bit for bit (``check``), then its device time over input
+    sets past the L2, every row taken, against its bound, the library's four
+    calls and the plain version."""
+    import torch
+
+    table = torch.randint(-2**31, 2**31 - 1, (r, n), generator=gen, device=gen.device,
+                          dtype=torch.int32)
+    check(f"({r}, {k}, {n}) int32", table, *join_inputs(gen, r, k, n, torch.int32))
+    set_bytes = 2 * (4 * k * n + 4 * k)
+    n_sets = max(12, -(-2 * L2_BYTES // set_bytes))
+    sets = [join_inputs(gen, r, k, n, torch.int32, top=2**20, taken=True) for _ in range(n_sets)]
+    bound_ms, bound_by = join_bound(k, n, 4, k)
+    ms = device_ms([functools.partial(ops.crdt_merge_rows, table, *s) for s in sets])
+    library_ms = device_ms([functools.partial(join_library, table, *s) for s in sets])
+    plain_ms = device_ms([functools.partial(rows_ref, table, *sets[0])], reps=3)
+    print(f"  crdt_merge_rows at {label}: {k:,} of {r:,} rows of {n} int32 words "
+          f"({table.numel() * 4 / 1e9:.2f} GB), the whole table bit-exact; every row taken "
+          f"{ms * 1e3:.2f} us on the device over {n_sets} input sets, bound {bound_ms * 1e3:.3f} "
+          f"us ({bound_by}), {bound_ms / ms:.1%} of bound; the library's index_select + where "
+          f"+ maximum + index_copy_ {library_ms * 1e3:.2f} us; plain {plain_ms * 1e3:.2f} us")
+    del sets, table
+    torch.cuda.empty_cache()
+    return {"shape": [r, k, n], "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms}
 
 
 def profile_device(label: str, run, n_runs: int,
@@ -4198,6 +4272,54 @@ def wan_cluster(strategy: str, barrier: bool, keys: int, device, *, modeled: boo
     return eng, gen, trace
 
 
+def lan_wan_bandwidth(regions, n: int, wan_mbps: float, lan_mbps: float = 10_000.0):
+    """Bandwidth matrix with the paper's LAN >> WAN asymmetry (Sec 2.2): a
+    copy of ``benchmarks/common.py:69-76``."""
+    import numpy as np
+
+    regions = np.asarray(regions)
+    same = regions[:, None] == regions[None, :]
+    bw = np.where(same, lan_mbps, wan_mbps).astype(float)
+    np.fill_diagonal(bw, np.inf)
+    return bw
+
+
+def tpcc_cluster(strategy: str, device, *, full: bool, mix: str = "TPCC-A",
+                 modeled: bool):
+    """Phase 33's engine, generator and trace.  Not ``full``:
+    ``benchmarks/bench_throughput.py``'s regime (``_run_tpcc``, ``:25-62``:
+    the paper's testbed trace of ``benchmarks/common.py:30-55``, 10 Gbps LAN
+    and 15 Mbps WAN, 100 warehouses x 50 items, remote 0.25, MILP, seed 3);
+    ``full``: TPCC_WAREHOUSES x TPCC_ITEMS on phase 32's testbed at
+    WAN_BANDWIDTH_MBPS, kcenter."""
+    import numpy as np
+
+    from repro_torch.core.latency import jitter_trace
+    from repro_torch.core.replication import EngineConfig, GeoCluster
+    from repro_torch.core.workload import TPCCConfig, TPCCGenerator
+
+    n = len(WAN_REGIONS)
+    if full:
+        eng = GeoCluster(EngineConfig(n_nodes=n, sync_strategy=strategy, planner="kcenter",
+                                      modeled_cpu=modeled),
+                         bandwidth_mbps=WAN_BANDWIDTH_MBPS, seed=3, device=device)
+        cfg = TPCCConfig(n_warehouses=TPCC_WAREHOUSES, mix=mix, remote_prob=0.10,
+                         items_per_warehouse=TPCC_ITEMS)
+        trace = jitter_trace(np.array(WAN_TESTBED), TPCC_EPOCHS, np.random.default_rng(0))
+    else:
+        geo = strategy == "geococo"
+        wan = np.array(TPCC_BENCH_REGIONS)[:, None] != np.array(TPCC_BENCH_REGIONS)[None, :]
+        eng = GeoCluster(EngineConfig(n_nodes=n, grouping=geo, filtering=geo, tiv=geo,
+                                      planner="milp", epoch_ms=10.0, modeled_cpu=modeled),
+                         bandwidth_mbps=lan_wan_bandwidth(TPCC_BENCH_REGIONS, n, 15.0),
+                         wan_mask=wan, seed=3, device=device)
+        cfg = TPCCConfig(n_warehouses=100, mix=mix, remote_prob=0.25, items_per_warehouse=50)
+        trace = jitter_trace(np.array(WAN_TESTBED), TPCC_CHECK_EPOCHS,
+                             np.random.default_rng(0), rel_sigma=0.04, spike_prob=0.002,
+                             spike_mult=(1.3, 1.8))
+    return eng, TPCCGenerator(cfg, n, seed=3), trace
+
+
 def wan_fields(rs) -> dict:
     """Every field of a run's report but ``plan_time_s`` (a wall clock)."""
     import numpy as np
@@ -4208,38 +4330,74 @@ def wan_fields(rs) -> dict:
             "msg_matrix": np.asarray(rs.msg_matrix).tolist(), "serve": rs.serve}
 
 
-def wan_check(dev) -> None:
-    """Phase 32 (a): flat and geococo under both engines on the card and on
-    the CPU at WAN_CHECK_KEYS keys and WAN_CHECK_EPOCHS epochs, modeled
-    filter CPU: every report field and both digests equal, one commit an
-    epoch through the join kernel on the card."""
+def loaded_store(eng, gen) -> tuple[float, float]:
+    """The engine's store made on its device and every row loaded before its
+    epochs (YCSB's load phase; a TPC-C database populated); returns the
+    seconds each took."""
     import torch
 
-    keys, epochs = WAN_CHECK_KEYS, WAN_CHECK_EPOCHS
+    def sync():
+        if eng.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    eng.store = gen.table(eng.device)
+    sync()
+    t1 = time.perf_counter()
+    gen.load(eng.store, seed=LOAD_SEED)
+    sync()
+    return t1 - t0, time.perf_counter() - t1
+
+
+def card_equals_cpu(tag: str, runs: list, dev) -> dict:
+    """Each ``(label, build)`` run on the card and on the CPU (``build(device)``
+    gives the engine, generator, trace, epochs and transactions a node, the
+    store already set): every report field and both digests equal, one
+    commit an epoch through the join kernel on the card.  Returns the card's
+    reports by label."""
+    import torch
+
     from repro_torch.kernels.crdt_merge import ops as merge_ops
 
-    for strategy in ("flat", "geococo"):
-        for barrier in (False, True):
-            runs = {}
-            for device in (dev, "cpu"):
-                eng, gen, trace = wan_cluster(strategy, barrier, keys, device, modeled=True)
-                before = merge_ops.crdt_merge_rows.launches
-                rs = eng.run(gen, trace, txns_per_node=WAN_TXNS, n_epochs=epochs)
-                runs[str(device)] = (wan_fields(rs), merge_ops.crdt_merge_rows.launches - before)
-                del eng
-            (card, launches), (cpu, _) = runs[str(dev)], runs["cpu"]
-            differ = sorted(k for k in card if card[k] != cpu[k])
-            if differ:
-                fail(f"[32] (a) {strategy}, barrier={barrier}: the card's run differs from the "
-                     f"CPU's in {differ}")
-            if dev.type == "cuda" and launches != epochs:
-                fail(f"[32] (a) {strategy}: {launches} join launches in {epochs} epochs (one "
-                     f"commit an epoch)")
-            print(f"[32] (a) {strategy}, barrier={barrier}, {keys:,} keys, {epochs} epochs: the "
-                  f"card's run equals the CPU's (every EpochStats and RunSummary field, "
-                  f"FilterStats, msg_matrix, digest {card['state_digest'][:12]}...); "
-                  f"{launches} join launches in {epochs} epochs")
-            torch.cuda.empty_cache()
+    reports = {}
+    for label, build in runs:
+        out = {}
+        for device in (dev, "cpu"):
+            eng, gen, trace, epochs, txns = build(device)
+            before = merge_ops.crdt_merge_rows.launches
+            rs = eng.run(gen, trace, txns_per_node=txns, n_epochs=epochs)
+            out[str(device)] = (wan_fields(rs), merge_ops.crdt_merge_rows.launches - before)
+            reports.setdefault(label, rs)
+            del eng, gen
+        (card, launches), (cpu, _) = out[str(dev)], out["cpu"]
+        differ = sorted(k for k in card if card[k] != cpu[k])
+        if differ:
+            fail(f"{tag} (a) {label}: the card's run differs from the CPU's in {differ}")
+        if launches != epochs:
+            fail(f"{tag} (a) {label}: {launches} join launches in {epochs} epochs (one commit "
+                 f"an epoch)")
+        print(f"{tag} (a) {label}, {epochs} epochs: the card's run equals the CPU's (every "
+              f"EpochStats and RunSummary field, FilterStats, msg_matrix, digest "
+              f"{card['state_digest'][:12]}...); {launches} join launches")
+        torch.cuda.empty_cache()
+    return reports
+
+
+def wan_check(dev) -> None:
+    """Phase 32 (a): flat and geococo under both engines on the card and on
+    the CPU at WAN_CHECK_KEYS keys, every key loaded before epoch 0, and
+    WAN_CHECK_EPOCHS epochs, modeled filter CPU."""
+    def build(strategy, barrier):
+        def make(device):
+            eng, gen, trace = wan_cluster(strategy, barrier, WAN_CHECK_KEYS, device,
+                                          modeled=True)
+            loaded_store(eng, gen)
+            return eng, gen, trace, WAN_CHECK_EPOCHS, WAN_TXNS
+        return make
+
+    card_equals_cpu("[32]", [(f"{s}, barrier={b}, {WAN_CHECK_KEYS:,} loaded keys", build(s, b))
+                             for s in ("flat", "geococo") for b in (False, True)], dev)
 
 
 def wan_times_text(times: list[dict]) -> str:
@@ -4274,43 +4432,55 @@ def join_calls():
         calls.extend((k, int((out != cur).sum())) for k, cur, out in kept)
 
 
-def wan_store(eng, gen, dev) -> float:
-    """Build the engine's store on the card before its epochs; returns the
-    seconds it took."""
+def tpcc_summary_line(strategy: str, rs, gen) -> str:
+    """One TPC-C run's numbers unrounded and its digests, in the form in
+    which ``tests/tpcc_full_reference.py`` prints the reference's run."""
+    w = rs.white_stats
+    return (f"{strategy}: committed {rs.committed}, aborted {rs.aborted} (read "
+            f"{rs.read_aborts}, write-write {rs.ww_aborts}); WAN {rs.wan_bytes} B; white bytes "
+            f"{w.white_byte_ratio!r} (aborted {w.aborted_updates}, null {w.null_updates}, stale "
+            f"{w.stale_updates}, duplicate {w.duplicate_updates}); tpmTotal "
+            f"{rs.throughput_tps * 60!r}; NewOrder {gen.neworder_count}; the epochs' sync "
+            f"{sum(e.sync_ms for e in rs.epochs)!r} ms, filter CPU "
+            f"{sum(e.filter_cpu_ms for e in rs.epochs)!r} ms, wall "
+            f"{sum(e.wall_ms for e in rs.epochs)!r} ms; state {rs.state_digest[:16]} value "
+            f"{rs.value_digest[:16]}")
+
+
+def host_sha_rate() -> tuple[float, float]:
+    """This host's SHA-256 rate (GB/s) over 1 GB of pinned memory: one
+    thread, and two threads at once (the digests' pair)."""
+    import hashlib
+
     import torch
 
-    torch.cuda.synchronize()
+    buf = torch.randint(0, 256, (1 << 30,), dtype=torch.uint8).pin_memory().numpy()
     t0 = time.perf_counter()
-    eng.store = gen.table(dev)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    hashlib.sha256(buf).hexdigest()
+    one = buf.size / (time.perf_counter() - t0) / 1e9
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        t0 = time.perf_counter()
+        list(pool.map(lambda _: hashlib.sha256(buf).hexdigest(), range(2)))
+        two = 2 * buf.size / (time.perf_counter() - t0) / 1e9
+    return one, two
 
 
-def run_wan(dev, counters: dict) -> dict:
-    """Phase 32: the WAN sync plane at full size, flat then geococo.  Each
-    run's store is built before its epochs and timed apart, as are
-    ``run()``'s two digests after them; the device busy share and the
-    join kernel's device time, call by call against the bound of the rows
-    each took, come from a profiled window of epochs alone."""
+def wan_main_runs(tag: str, build, epochs: int, txns: int, counters: dict) -> dict:
+    """Flat, then geococo, each from a store loaded before its epochs (its
+    set-up timed apart) through ``run()`` (its two digests, one pass,
+    timed apart from the epochs): gated (b) one state and (c) one join
+    launch an epoch, every other kernel 0."""
     import torch
 
-    t_phase = time.perf_counter()
-    memory_line("[32]", "start")
-    wan_check(dev)
-    print(f"[32] YCSB store of {WAN_KEYS:,} records x {WAN_VALUE_BYTES} B on the card, Zipf "
-          f"0.99, 50/50, 4 ops, rewrite 0.1; 5 nodes on the paper's testbed at "
-          f"{WAN_BANDWIDTH_MBPS:g} Mbps, {WAN_TXNS} transactions a node an epoch, "
-          f"{WAN_EPOCHS} epochs, kcenter, filter CPU measured on the card; the store starts "
-          f"empty (no YCSB load phase)")
     runs = {}
     for strategy in ("flat", "geococo"):
         torch.cuda.reset_peak_memory_stats()
-        eng, gen, trace = wan_cluster(strategy, False, WAN_KEYS, dev, modeled=False)
-        setup_s = wan_store(eng, gen, dev)
+        eng, gen, trace = build(strategy)
+        make_s, load_s = loaded_store(eng, gen)
 
         def main_path():
             t0 = time.perf_counter()
-            rs = eng.run(gen, trace, txns_per_node=WAN_TXNS, n_epochs=WAN_EPOCHS)
+            rs = eng.run(gen, trace, txns_per_node=txns, n_epochs=epochs)
             torch.cuda.synchronize()
             return rs, time.perf_counter() - t0
 
@@ -4318,55 +4488,79 @@ def run_wan(dev, counters: dict) -> dict:
             (rs, wall), counts = counted(counters, main_path)
         peak = torch.cuda.max_memory_allocated()
         others = {k: v for k, v in counts.items() if k != "crdt_merge_rows" and v}
-        if others or counts["crdt_merge_rows"] != WAN_EPOCHS:
-            fail(f"[32] (c) {strategy}: kernel counts {counts} in {WAN_EPOCHS} epochs (one "
+        if others or counts["crdt_merge_rows"] != epochs:
+            fail(f"{tag} (c) {strategy}: kernel counts {counts} in {epochs} epochs (one "
                  f"commit an epoch)")
         epochs_s = sum(sum(t.values()) for t in eng.epoch_times)
+        digests_s = wall - epochs_s
+        state_b, value_b = eng.store.digest_bytes
         bound_ms = sum(join_bound(k, eng.store.words, 4, taken)[0] for k, taken in calls)
         w = rs.white_stats
-        print(f"[32] {strategy}: store set-up {setup_s * 1e3:.1f} ms before the epochs; "
-              f"{WAN_EPOCHS} epochs {epochs_s * 1e3:.1f} ms ({epochs_s / WAN_EPOCHS * 1e3:.2f} ms "
-              f"an epoch): {wan_times_text(eng.epoch_times)}; then run()'s two digests "
-              f"{(wall - epochs_s) * 1e3:.1f} ms (its wall {wall * 1e3:.1f} ms less the epochs)")
+        print(f"{tag} {strategy}: store made in {make_s * 1e3:.1f} ms and loaded "
+              f"({eng.store.n_rows:,} rows) in {load_s * 1e3:.1f} ms before the epochs; "
+              f"{epochs} epochs {epochs_s * 1e3:.1f} ms ({epochs_s / epochs * 1e3:.2f} ms an "
+              f"epoch): {wan_times_text(eng.epoch_times)}; then run()'s two digests in one "
+              f"pass {digests_s * 1e3:.1f} ms (its wall {wall * 1e3:.1f} ms less the epochs) "
+              f"over {state_b / 1e9:.3f} + {value_b / 1e9:.3f} GB: "
+              f"{(state_b + value_b) / digests_s / 1e9:.3f} GB/s")
         for e, (st, t) in enumerate(zip(rs.epochs, eng.epoch_times)):
             print(f"    epoch {e:2d}: draws {t['draw_s'] * 1e3:6.1f} ms, copy "
                   f"{t['copy_s'] * 1e3:6.1f}, device {t['device_s'] * 1e3:6.1f}, host "
                   f"{t['host_s'] * 1e3:6.1f}; committed {st.committed}, aborted {st.aborted}, "
                   f"sync {st.sync_ms:.2f} ms, WAN {st.wan_bytes / 1e6:.3f} MB")
-        print(f"[32] {strategy}: committed {rs.committed:,}, aborted {rs.aborted:,} (read "
+        print(f"{tag} {strategy}: committed {rs.committed:,}, aborted {rs.aborted:,} (read "
               f"{rs.read_aborts}, write-write {rs.ww_aborts:,}); modeled {rs.throughput_tps:,.0f} "
               f"txn/s; WAN {rs.wan_bytes / 1e6:.3f} MB; white bytes {w.white_byte_ratio:.4f} "
               f"(aborted {w.aborted_updates:,}, null {w.null_updates:,}, stale "
               f"{w.stale_updates}, duplicate {w.duplicate_updates}); {len(eng.store):,} keys "
               f"present; peak {peak / 1e9:.2f} GB")
-        print(f"[32] (c) {strategy}: crdt_merge_rows {counts['crdt_merge_rows']} launches in "
-              f"{WAN_EPOCHS} epochs (one commit an epoch), every other kernel 0; "
+        if hasattr(gen, "neworder_count"):
+            print(f"{tag} {strategy}: tpmTotal {rs.throughput_tps * 60:,.0f} (modeled); "
+                  f"{gen.neworder_count:,} NewOrder transactions of {rs.total_txns:,}")
+        print(f"{tag} (c) {strategy}: crdt_merge_rows {counts['crdt_merge_rows']} launches in "
+              f"{epochs} epochs (one commit an epoch), every other kernel 0; "
               f"{min(k for k, _ in calls):,}-{max(k for k, _ in calls):,} rows a join, "
               f"{min(t for _, t in calls):,}-{max(t for _, t in calls):,} taken; bound "
               f"{bound_ms:.4f} ms in all (bytes of the rows taken, kernels.work.crdt_merge_rows)")
-        runs[strategy] = {"rs": rs, "epochs_s": epochs_s, "setup_s": setup_s,
-                          "digests_s": wall - epochs_s, "times": list(eng.epoch_times),
+        runs[strategy] = {"rs": rs, "epochs_s": epochs_s, "load_s": load_s,
+                          "digests_s": digests_s, "times": list(eng.epoch_times),
                           "launches": counts["crdt_merge_rows"], "bound_ms": bound_ms,
                           "peak": peak}
+        if strategy == "flat":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.store.digest()
+            one_s = time.perf_counter() - t0
+            runs["flat"]["state_digest_s"] = one_s
+            print(f"{tag} flat: the state digest alone {one_s * 1e3:.1f} ms over "
+                  f"{state_b / 1e9:.3f} GB: {state_b / one_s / 1e9:.3f} GB/s")
         del eng, gen
         torch.cuda.empty_cache()
     flat, geo = runs["flat"]["rs"], runs["geococo"]["rs"]
     if (flat.state_digest, flat.value_digest) != (geo.state_digest, geo.value_digest):
-        fail("[32] (b) flat and geococo end in different states")
-    print(f"[32] (b) flat and geococo: the same state digest {geo.state_digest[:16]}... and "
+        fail(f"{tag} (b) flat and geococo end in different states")
+    print(f"{tag} (b) flat and geococo: the same state digest {geo.state_digest[:16]}... and "
           f"value digest {geo.value_digest[:16]}...; WAN bytes {flat.wan_bytes / 1e6:.3f} -> "
           f"{geo.wan_bytes / 1e6:.3f} MB ({geo.wan_bytes / flat.wan_bytes - 1:+.1%})")
-    # the device busy share: the profiler's device time over the first
-    # epochs of a second geococo run (the same seeds: the same work), its
-    # store built before and no digests, against the wall of that window
-    eng, gen, trace = wan_cluster("geococo", False, WAN_KEYS, dev, modeled=False)
-    wan_store(eng, gen, dev)
+    return runs
+
+
+def wan_profile(tag: str, build, txns: int, runs: dict) -> dict:
+    """The device busy share: the profiler's device time over the first
+    WAN_PROFILE_EPOCHS epochs of another geococo run (the same seeds: the
+    same work), its store loaded before and no digests, against the wall
+    of that window; and the join kernel's device time, launch by launch,
+    against the bound of the rows each took."""
+    import torch
+
+    eng, gen, trace = build("geococo")
+    loaded_store(eng, gen)
     window = {}
 
     def epochs():
         t0 = time.perf_counter()
         for e in range(WAN_PROFILE_EPOCHS):
-            batch = gen.to_batch(gen.draw(e, WAN_TXNS), eng.store)
+            batch = gen.to_batch(gen.draw(e, txns), eng.store)
             eng.run_epoch(e, batch, trace[e % len(trace)])
         torch.cuda.synchronize()
         window["wall_ms"] = (time.perf_counter() - t0) * 1e3
@@ -4374,34 +4568,127 @@ def run_wan(dev, counters: dict) -> dict:
     with join_calls() as calls:
         dev_ms, by_name, each_ms = profile_launches(epochs, "crdt_merge_rows_kernel")
     wall_ms = window["wall_ms"]
-    unprofiled_ms = sum(sum(t.values()) for t in runs["geococo"]["times"][:WAN_PROFILE_EPOCHS]) * 1e3
+    unprofiled_ms = sum(sum(t.values())
+                        for t in runs["geococo"]["times"][:WAN_PROFILE_EPOCHS]) * 1e3
     kernel_ms = sum(each_ms)
     bounds = [join_bound(k, eng.store.words, 4, taken)[0] for k, taken in calls]
     bound_ms = sum(bounds)
     if len(calls) != WAN_PROFILE_EPOCHS:
-        fail(f"[32] the profiled window made {len(calls)} joins in {WAN_PROFILE_EPOCHS} epochs")
+        fail(f"{tag} the profiled window made {len(calls)} joins in {WAN_PROFILE_EPOCHS} "
+             f"epochs")
     if dev_ms is not None:
-        print(f"[32] geococo's first {WAN_PROFILE_EPOCHS} epochs, profiled: {dev_ms:.2f} ms of "
+        print(f"{tag} geococo's first {WAN_PROFILE_EPOCHS} epochs, profiled: {dev_ms:.2f} ms of "
               f"device time (torch.profiler) in {wall_ms:.1f} ms of that window's wall: busy "
               f"{dev_ms / wall_ms:.1%} (the same epochs unprofiled in the main run: "
               f"{unprofiled_ms:.1f} ms); the largest:")
         for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
             print(f"    {kms:9.3f} ms  {name[:100]}")
-        print(f"[32] the commit's kernel in those epochs: {len(each_ms)} launches of "
+        print(f"{tag} the commit's kernel in those epochs: {len(each_ms)} launches of "
               f"crdt_merge_rows_kernel, {kernel_ms:.4f} ms of device time (torch.profiler), "
               f"against a bound of {bound_ms:.4f} ms (bytes of the rows taken): "
               f"{bound_ms / kernel_ms:.1%}; each:")
         for (k, taken), ms, bound in zip(calls, each_ms, bounds):
             print(f"    {k:,} rows, {taken:,} taken: {ms * 1e3:.2f} us against "
                   f"{bound * 1e3:.3f} us, {bound / ms:.1%}")
-    runs["geococo"]["kernel_ms"], runs["geococo"]["kernel_bound_ms"] = kernel_ms, bound_ms
     del eng, gen
     torch.cuda.empty_cache()
+    return {"busy": None if dev_ms is None else dev_ms / wall_ms, "kernel_ms": kernel_ms,
+            "kernel_bound_ms": bound_ms}
+
+
+def run_wan(dev, counters: dict) -> dict:
+    """Phase 32: the WAN sync plane at full size on a loaded YCSB store,
+    flat then geococo, and a profiled window of epochs."""
+    t_phase = time.perf_counter()
+    memory_line("[32]", "start")
+    one, two = host_sha_rate()
+    print(f"[32] this host's SHA-256 over 1 GB of pinned memory: {one:.3f} GB/s in one thread, "
+          f"{two:.3f} GB/s in two at once")
+    wan_check(dev)
+    print(f"[32] YCSB store of {WAN_KEYS:,} records x {WAN_VALUE_BYTES} B on the card, every "
+          f"record loaded before epoch 0 (YCSB's load phase), Zipf 0.99, 50/50, 4 ops, rewrite "
+          f"0.1; 5 nodes on the paper's testbed at {WAN_BANDWIDTH_MBPS:g} Mbps, {WAN_TXNS} "
+          f"transactions a node an epoch, {WAN_EPOCHS} epochs, kcenter, filter CPU measured on "
+          f"the card")
+
+    def build(strategy):
+        return wan_cluster(strategy, False, WAN_KEYS, dev, modeled=False)
+
+    runs = wan_main_runs("[32]", build, WAN_EPOCHS, WAN_TXNS, counters)
+    prof = wan_profile("[32]", build, WAN_TXNS, runs)
     memory_line("[32]", "end")
     took = time.perf_counter() - t_phase
     print(f"[32] took {took:.1f} s (limit {WAN_PHASE_LIMIT_S:g} s)")
     return {"launches": sum(r["launches"] for r in runs.values()), "runs": runs,
-            "busy": None if dev_ms is None else dev_ms / wall_ms, "seconds": took}
+            "seconds": took, "sha_rate": (one, two), **prof}
+
+
+def tpcc_reference_pair(dev, runs: dict) -> None:
+    """Phase 33 (d): (b)'s settings from an empty store, the filter's CPU
+    modeled from its bytes, flat then geococo: the runs that
+    ``tests/tpcc_full_reference.py`` makes with the reference on the CPU,
+    printed in the same form, and set beside (b)'s loaded runs."""
+    import torch
+
+    out = {}
+    for strategy in ("flat", "geococo"):
+        eng, gen, trace = tpcc_cluster(strategy, dev, full=True, modeled=True)
+        rs = eng.run(gen, trace, txns_per_node=TPCC_TXNS, n_epochs=TPCC_EPOCHS)
+        loaded = runs[strategy]["rs"]
+        print(f"[33] (d) empty store, modeled filter CPU, {tpcc_summary_line(strategy, rs, gen)}")
+        print(f"[33] (d) {strategy}: committed, aborted and WAN bytes equal (b)'s run from the "
+              f"loaded store: {(rs.committed, rs.aborted, rs.wan_bytes) == (loaded.committed, loaded.aborted, loaded.wan_bytes)}; "
+              f"tpmTotal {rs.throughput_tps * 60:,.0f} modeled against "
+              f"{loaded.throughput_tps * 60:,.0f} with the filter's CPU measured on the card")
+        out[strategy] = rs
+        del eng, gen
+        torch.cuda.empty_cache()
+    if out["flat"].state_digest != out["geococo"].state_digest:
+        fail("[33] (d) flat and geococo end in different states")
+
+
+def run_tpcc(dev, counters: dict) -> dict:
+    """Phase 33: TPC-C on the card.  (a) ``bench_throughput.py``'s regime,
+    the four mixes under flat and geococo, card against CPU; (b) the full
+    database, TPCC_WAREHOUSES x TPCC_ITEMS rows loaded before epoch 0,
+    TPCC-A, flat then geococo, a profiled window of epochs, and (d) the
+    pair that the reference's run on the CPU is compared with."""
+    t_phase = time.perf_counter()
+    memory_line("[33]", "start")
+
+    def check(mix, strategy):
+        def make(device):
+            eng, gen, trace = tpcc_cluster(strategy, device, full=False, mix=mix, modeled=True)
+            return eng, gen, trace, TPCC_CHECK_EPOCHS, TPCC_CHECK_TXNS
+        return make
+
+    card = card_equals_cpu("[33]", [(f"{mix} {s}", check(mix, s)) for mix in TPCC_MIXES_ORDER
+                                    for s in ("flat", "geococo")], dev)
+    for mix in TPCC_MIXES_ORDER:
+        a, b = card[f"{mix} flat"], card[f"{mix} geococo"]
+        if (a.state_digest, a.value_digest) != (b.state_digest, b.value_digest):
+            fail(f"[33] (a) {mix}: flat and geococo end in different states")
+        print(f"[33] (a) {mix}: tpmTotal {a.throughput_tps * 60:,.0f} -> "
+              f"{b.throughput_tps * 60:,.0f} ({b.throughput_tps / a.throughput_tps - 1:+.1%}, "
+              f"modeled filter CPU); WAN {a.wan_bytes / 1e6:.3f} -> {b.wan_bytes / 1e6:.3f} MB "
+              f"({1 - b.wan_bytes / a.wan_bytes:.1%} saved); one state digest")
+    print(f"[33] TPC-C {TPCC_WAREHOUSES} warehouses x {TPCC_ITEMS:,} items (STOCK's rows), "
+          f"{TPCC_VALUE_BYTES} B values, every row loaded before epoch 0; TPCC-A, remote 0.10; "
+          f"5 nodes on the paper's testbed at {WAN_BANDWIDTH_MBPS:g} Mbps, {TPCC_TXNS} "
+          f"transactions a node an epoch, {TPCC_EPOCHS} epochs, kcenter, filter CPU measured on "
+          f"the card")
+
+    def build(strategy):
+        return tpcc_cluster(strategy, dev, full=True, modeled=False)
+
+    runs = wan_main_runs("[33]", build, TPCC_EPOCHS, TPCC_TXNS, counters)
+    prof = wan_profile("[33]", build, TPCC_TXNS, runs)
+    tpcc_reference_pair(dev, runs)
+    memory_line("[33]", "end")
+    took = time.perf_counter() - t_phase
+    print(f"[33] took {took:.1f} s")
+    return {"launches": sum(r["launches"] for r in runs.values()), "runs": runs,
+            "seconds": took, **prof}
 
 
 def run_topk(shapes, dev, filter_ms: float) -> dict:
@@ -4515,7 +4802,8 @@ def main() -> None:
     entries["crdt_merge_rows"] = kernel_entry(
         "crdt_merge_rows", "src/repro_torch/csrc/crdt_merge.cu",
         "src/repro/kernels/crdt_merge/crdt_merge.py:24", join["errs"], join["main"],
-        library_ms=join["library_ms"], gather_merge_scatter_ms=join["gather_merge_scatter_ms"])
+        library_ms=join["library_ms"], gather_merge_scatter_ms=join["gather_merge_scatter_ms"],
+        tpcc_commit=join["tpcc"])
     counters = kernel_counters()
 
     print(f"  [3] took {time.perf_counter() - t_phase:.1f} s")
@@ -4647,9 +4935,15 @@ def main() -> None:
     # ---- 32. the WAN sync plane: a 10M-record YCSB store on the emptied card
     torch.cuda.empty_cache()
     wan = run_wan(dev, counters)
-    entries["crdt_merge_rows"]["launches"] = wan["launches"]
-    entries["crdt_merge_rows"]["wan_kernel_ms"] = wan["runs"]["geococo"]["kernel_ms"]
-    entries["crdt_merge_rows"]["wan_bound_ms"] = wan["runs"]["geococo"]["kernel_bound_ms"]
+    entries["crdt_merge_rows"]["wan_kernel_ms"] = wan["kernel_ms"]
+    entries["crdt_merge_rows"]["wan_bound_ms"] = wan["kernel_bound_ms"]
+
+    # ---- 33. TPC-C: the benchmark's regime card against CPU, then 10^7 loaded rows
+    torch.cuda.empty_cache()
+    tpcc = run_tpcc(dev, counters)
+    entries["crdt_merge_rows"]["launches"] = wan["launches"] + tpcc["launches"]
+    entries["crdt_merge_rows"]["tpcc_kernel_ms"] = tpcc["kernel_ms"]
+    entries["crdt_merge_rows"]["tpcc_bound_ms"] = tpcc["kernel_bound_ms"]
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

@@ -1,15 +1,16 @@
-"""Geo-distributed database simulation on the PyTorch port: the YCSB half of
-``examples/geo_database_sim.py``, its store on the card.
+"""Geo-distributed database simulation on the PyTorch port: the paper's
+evaluation in miniature (``examples/geo_database_sim.py``), its store on the
+card.
 
     PYTHONPATH=src python examples/geo_database_sim_torch.py              # on the card
     PYTHONPATH=src python examples/geo_database_sim_torch.py --device cpu
 
 Replays the paper's 5-node real-world testbed (2 Kalgan + 2 Hohhot + 1 Hong
-Kong) under YCSB, flat synchronization (GeoGauss) against GeoCoCo
-(grouping + TIV relays + white-data filtering), then GeoCoCo with its
-group 0 aggregator failed at mid-run.  The replicated store, validation,
-the filter and the commit run on ``--device``; the planner and the WAN
-simulator on the host.
+Kong) under TPC-C (100 warehouses, the paper's four mixes) and YCSB, flat
+synchronization (GeoGauss) against GeoCoCo (grouping + TIV relays +
+white-data filtering), then GeoCoCo on YCSB with its group 0 aggregator
+failed at mid-run.  The replicated store, validation, the filter and the
+commit run on ``--device``; the planner and the WAN simulator on the host.
 """
 
 import argparse
@@ -18,7 +19,8 @@ import numpy as np
 
 from repro_torch.core.latency import jitter_trace
 from repro_torch.core.replication import EngineConfig, GeoCluster
-from repro_torch.core.workload import YCSBConfig, YCSBGenerator
+from repro_torch.core.workload import TPCC_MIXES, TPCCConfig, TPCCGenerator, YCSBConfig, \
+    YCSBGenerator
 
 
 def paper_testbed(n_rounds: int, seed: int = 0):
@@ -47,12 +49,25 @@ def main(argv=None):
     base, regions, trace = paper_testbed(epochs)
     print("testbed: Kalgan x2, Hohhot x2, Hong Kong x1 (paper Sec 6.1)")
 
-    def cluster(geococo: bool) -> GeoCluster:
+    def cluster(geococo: bool, seed: int = 5) -> GeoCluster:
         return GeoCluster(
             EngineConfig(n_nodes=n, grouping=geococo, filtering=geococo, tiv=geococo,
                          planner=args.planner),
-            bandwidth_mbps=120.0, seed=5, device=args.device,
+            bandwidth_mbps=120.0, seed=seed, device=args.device,
         )
+
+    print("\n== TPC-C (100 warehouses) ==")
+    tpcc = {}
+    for mix in TPCC_MIXES:
+        rows = {}
+        for name, geococo in (("GeoGauss", False), ("+GeoCoCo", True)):
+            gen = TPCCGenerator(TPCCConfig(n_warehouses=100, mix=mix), n, seed=3)
+            rows[name] = cluster(geococo, seed=3).run(gen, trace, txns_per_node=args.txns)
+        a, b = rows["GeoGauss"], rows["+GeoCoCo"]
+        print(f"  {mix}: tpmTotal {a.throughput_tps*60:,.0f} -> {b.throughput_tps*60:,.0f}"
+              f"  ({b.throughput_tps/a.throughput_tps-1:+.1%}); "
+              f"state identical: {a.state_digest == b.state_digest}")
+        tpcc[mix] = rows
 
     def generator() -> YCSBGenerator:
         return YCSBGenerator(
@@ -87,7 +102,7 @@ def main(argv=None):
           f"control events: {eng.control.event_counts()}")
     print(f"  run completed on {eng.device} with consistent state "
           f"(digest {eng.store.digest()[:12]}..., {eng.store.merges} merges)")
-    return rs1, rs2, eng
+    return {"tpcc": tpcc, "ycsb": runs, "failover": (rs1, rs2), "engine": eng}
 
 
 if __name__ == "__main__":

@@ -4,5 +4,5 @@
 transfer DAGs ``schedule``, the WAN simulator ``simulator``, the epoch
 sinks ``sinks``) and the WAN sync plane's database on the device: the
 CRDT store ``crdt``, epoch OCC ``occ``, the white-data filter
-``whitedata``, the YCSB generator ``workload`` and the replication engine
-``replication``."""
+``whitedata``, the YCSB and TPC-C generators and the diurnal load
+``workload``, and the replication engine ``replication``."""

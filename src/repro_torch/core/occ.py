@@ -79,7 +79,8 @@ class EpochBatch:
     table row ``read_row`` and the version read ``read_ver`` (``(R, 3)``);
     per write its transaction's position ``write_txn``, ``write_row``, the
     value ``write_val`` (``(W, words)`` int32, as the table holds values)
-    and the key's length ``write_klen`` (``Update.nbytes`` counts it).
+    the key's length ``write_klen`` and the value's ``write_len``
+    (``Update.nbytes`` counts both).
     Reads and writes follow their transactions' order, each transaction's
     in its own order: the order of ``[u for t in txns for u in
     txn_updates(t)]``.
@@ -96,7 +97,7 @@ class EpochBatch:
     write_row: torch.Tensor
     write_val: torch.Tensor
     write_klen: torch.Tensor
-    value_bytes: int
+    write_len: torch.Tensor
 
     @property
     def n_txns(self) -> int:
@@ -112,7 +113,7 @@ class EpochBatch:
 
     def write_nbytes(self) -> torch.Tensor:
         """``Update.nbytes`` of each write: key + value + 24."""
-        return self.write_klen + self.value_bytes + 24
+        return self.write_klen + self.write_len + 24
 
     def select(self, txns: torch.Tensor) -> "EpochBatch":
         """The transactions at positions ``txns``, in that order, with their
@@ -132,7 +133,7 @@ class EpochBatch:
             self.txn_id[txns], self.node[txns], self.epoch[txns], self.seq[txns],
             r_txn, self.read_row[r], self.read_ver[r],
             w_txn, self.write_row[w], self.write_val[w], self.write_klen[w],
-            self.value_bytes)
+            self.write_len[w])
 
     def node_txns(self, nodes: Sequence[int]) -> torch.Tensor:
         """Positions of the transactions of ``nodes``, node by node in the
@@ -149,8 +150,8 @@ class EpochBatch:
                   device: str | torch.device | None = None) -> "EpochBatch":
         """The batch of host :class:`Txn`\\ s.  Keys go to ``table``'s rows
         and values into its words; without a table keys get first-seen ids
-        and values are left out (enough for validation without a
-        snapshot)."""
+        and values are left out but for their lengths (enough for
+        validation without a snapshot)."""
         dev = table.device if table is not None else torch.device(device or "cpu")
         ids: dict[str, int] = {}
         row = table.row_of if table is not None else (lambda k: ids.setdefault(k, len(ids)))
@@ -160,16 +161,15 @@ class EpochBatch:
         if table is not None:
             vals = table.pack([w[3] for w in writes]) if writes else \
                 torch.zeros(0, table.words, dtype=torch.int32, device=dev)
-            vbytes = table.value_bytes
         else:
-            vals, vbytes = torch.zeros(len(writes), 0, dtype=torch.int32, device=dev), 0
+            vals = torch.zeros(len(writes), 0, dtype=torch.int32, device=dev)
         return cls(
             _i64([t.txn_id for t in txns], dev), _i64([t.node for t in txns], dev),
             _i64([t.epoch for t in txns], dev), _i64([t.seq for t in txns], dev),
             _i64([r[0] for r in reads], dev), _i64([r[1] for r in reads], dev),
             _i64([r[2] for r in reads], dev).reshape(-1, 3),
             _i64([w[0] for w in writes], dev), _i64([w[1] for w in writes], dev), vals,
-            _i64([len(w[2]) for w in writes], dev), vbytes)
+            _i64([len(w[2]) for w in writes], dev), _i64([len(w[3]) for w in writes], dev))
 
     def to_txns(self, table: CRDTTable) -> list[Txn]:
         """The host :class:`Txn`\\ s of the batch (keys and values through
@@ -180,7 +180,7 @@ class EpochBatch:
                            self.read_ver.tolist()):
             reads[i].append((table.key_of(r), Version(*v)))
         for i, r, v in zip(self.write_txn.tolist(), self.write_row.tolist(),
-                           table.unpack(self.write_val)):
+                           table.unpack(self.write_val, self.write_len)):
             writes[i].append((table.key_of(r), v))
         return [Txn(tid, nd, ep, sq, tuple(rs), tuple(ws))
                 for tid, nd, ep, sq, rs, ws in zip(self.txn_id.tolist(), self.node.tolist(),
@@ -197,7 +197,8 @@ class EpochBatch:
         vers = torch.stack([self.epoch[t], self.seq[t], self.node[t]], 1).tolist()
         return [Update(table.key_of(r), v, Version(*ver), tid)
                 for r, v, ver, tid in zip(self.write_row[idx].tolist(),
-                                          table.unpack(self.write_val[idx]), vers,
+                                          table.unpack(self.write_val[idx],
+                                                       self.write_len[idx]), vers,
                                           self.txn_id[t].tolist())]
 
 

@@ -306,7 +306,9 @@ class GeoCluster:
     omitted, the engine builds its own from the config's replan parameters.
 
     ``store`` is made on the first :meth:`run` from its generator's key
-    space (``generator.table``), unless set before.  ``epoch_times`` holds
+    space (``generator.table``), unless set before: a store loaded before
+    epoch 0 (``generator.load``) is state carried in, as the reference's
+    ``GeoCluster.store`` set before ``run()`` is.  ``epoch_times`` holds
     each epoch's wall split (of the epochs whose ``EpochStats`` the run
     keeps): host draws, the batch's copy to the device
     with its gathers, device work (validation, filters, commit, each ending
@@ -512,7 +514,7 @@ class GeoCluster:
         w = ok[batch.write_txn]
         t = batch.write_txn[w]
         vers = torch.stack([batch.epoch[t], batch.seq[t], batch.node[t]], 1)
-        self.store.merge_rows(batch.write_row[w], batch.write_val[w], vers)
+        self.store.merge_rows(batch.write_row[w], batch.write_val[w], vers, batch.write_len[w])
         committed, ra, wa = torch.stack([ok.sum(), vres.read_mask.sum(),
                                          vres.ww_mask.sum()]).tolist()
         return committed, ra, wa
@@ -583,7 +585,12 @@ class GeoCluster:
     def run(self, generator, trace, *, txns_per_node: int = 20,
             n_epochs: int | None = None) -> RunStats:
         """``n_epochs`` epochs (default ``len(trace)``) of ``generator``'s
-        transactions, epoch ``e`` on ``trace[e % len(trace)]``."""
+        transactions, epoch ``e`` on ``trace[e % len(trace)]``.  A generator
+        (``YCSBGenerator``, ``TPCCGenerator``, a ``DiurnalLoad`` around
+        either) gives ``table(device)``, each epoch's host ``draw(epoch,
+        txns_per_node)`` and its ``to_batch(draws, store)`` on the store's
+        device.  The run ends in both digests, from one pass over the
+        store."""
         cfg = self.cfg
         n_epochs = n_epochs if n_epochs is not None else len(trace)
         if self.store is None:
@@ -603,12 +610,13 @@ class GeoCluster:
             self.epoch_times.append({"draw_s": t1 - t0, "copy_s": t2 - t1,
                                      "device_s": self._device_s,
                                      "host_s": t3 - t2 - self._device_s})
+        state_digest, value_digest = self.store.digests()
         return RunStats(
             epochs=agg.epochs,
             msg_matrix=self.msg_matrix.copy(),
             plan_time_s=self.plan_time_s,
-            state_digest=self.store.digest(),
-            value_digest=self.store.digest(values_only=True),
+            state_digest=state_digest,
+            value_digest=value_digest,
             summary=agg.summary,
         )
 

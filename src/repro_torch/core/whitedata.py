@@ -108,6 +108,9 @@ def filter_group_batch(
        smaller version, from another node);
     4. *null*: the value equals the snapshot's; kept, but only its
        key + version metadata crosses the WAN.
+
+    Two values are equal when their lengths and their bytes are: the words
+    of a value shorter than the table's width are zero padded.
     """
     dev = batch.write_row.device
     w = batch.n_writes
@@ -128,7 +131,9 @@ def filter_group_batch(
     dup = torch.zeros(w, dtype=torch.bool, device=dev)
     if enable_dedup and bool(alive.any()):
         idx = torch.nonzero(alive).flatten()
-        content = torch.cat([batch.write_row[idx, None], batch.write_val[idx].to(torch.int64)], 1)
+        # a short value is zero padded, so its length is part of its content
+        content = torch.cat([batch.write_row[idx, None], batch.write_len[idx, None],
+                             batch.write_val[idx].to(torch.int64)], 1)
         gid = torch.unique(content, dim=0, return_inverse=True)[1]
         rank = version_rank(wver[idx])
         o = torch.sort(gid, stable=True).indices
@@ -144,8 +149,9 @@ def filter_group_batch(
         alive &= ~dup
     null = torch.zeros(w, dtype=torch.bool, device=dev)
     if enable_null:
-        same = snapshot.present[batch.write_row] & (
-            snapshot.values[batch.write_row] == batch.write_val).all(dim=1)
+        row = batch.write_row
+        same = (snapshot.present[row] & (snapshot.lengths[row] == batch.write_len)
+                & (snapshot.values[row] == batch.write_val).all(dim=1))
         null = alive & same
     full = alive & ~null
     counts = torch.stack([

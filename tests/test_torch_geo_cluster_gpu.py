@@ -1,7 +1,8 @@
 """The WAN sync plane on the card against its CPU run: the same seeded YCSB
 epochs through ``GeoCluster`` on ``cuda`` and on the CPU give every
 ``EpochStats`` field, the message matrix and both digests equal, for
-``flat``, ``hier`` and ``geococo`` under both engines, with every commit
+``flat``, ``hier`` and ``geococo`` under both engines (and TPC-C epochs from
+a loaded store under ``flat`` and ``geococo``), with every commit
 joined through the CUDA join kernel (``crdt_merge_rows``); the store's join, the validation and
 the filter alone on random batches, card against CPU.
 
@@ -96,3 +97,27 @@ def test_join_validation_and_filter_on_the_card(card):
                     f.kept.cpu().tolist(), f.null.cpu().tolist())
     assert out[card] == out["cpu"]
     assert out["cpu"][1] and out["cpu"][3]["duplicate_updates"] and out["cpu"][3]["stale_updates"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["flat", "geococo"])
+def test_tpcc_from_a_loaded_store_on_the_card_equals_its_cpu_run(card, strategy):
+    from repro_torch.core.workload import TPCCConfig, TPCCGenerator
+
+    out = {}
+    for device in (card, "cpu"):
+        eng = GeoCluster(EngineConfig(n_nodes=5, sync_strategy=strategy, planner="kcenter",
+                                      modeled_cpu=True),
+                         bandwidth_mbps=120.0, seed=3, device=device)
+        gen = TPCCGenerator(TPCCConfig(n_warehouses=100, items_per_warehouse=2000,
+                                       mix="TPCC-A"), 5, seed=3)
+        eng.store = gen.table(device)
+        gen.load(eng.store, seed=5)
+        before = merge_ops.crdt_merge_rows.launches
+        rs = eng.run(gen, jitter_trace(BASE, 4, np.random.default_rng(0)), txns_per_node=200)
+        out[str(device)] = ([dataclasses.asdict(e) for e in rs.epochs], rs.state_digest,
+                            rs.value_digest, rs.msg_matrix.tolist(), gen.neworder_count,
+                            merge_ops.crdt_merge_rows.launches - before)
+    got, want = out[str(card)], out["cpu"]
+    assert got[:5] == want[:5]
+    assert got[5] == 4

@@ -176,3 +176,81 @@ def test_lexsort_matches_numpy():
     cols = [rng.integers(0, 4, 200) for _ in range(4)]
     got = pcrdt.lexsort([torch.from_numpy(c) for c in cols])
     assert got.tolist() == np.lexsort(cols).tolist()
+
+
+def test_apply_many_counts_updates_as_the_reference():
+    """Fault 14: the count of updates that changed the store, applied in
+    batch order, not of rows that changed."""
+    ups = [("k1", (1, 0, 0)), ("k1", (2, 0, 0)), ("k2", (1, 0, 0))]
+    ref = rcrdt.DeltaCRDTStore()
+    want = ref.apply_many([rcrdt.Update(k, b"v" * VB, rcrdt.Version(*v)) for k, v in ups])
+    table = pcrdt.CRDTTable(N_KEYS, VB, device="cpu")
+    got = table.apply_many([pcrdt.Update(k, b"v" * VB, pcrdt.Version(*v)) for k, v in ups])
+    assert (got, want) == (3, 3)
+
+
+def _repeats(rng, order: str) -> list:
+    """A batch that repeats keys, each key's versions ascending, descending
+    or equal in batch order (or the three mixed over the keys), the keys
+    interleaved at random."""
+    per_key = {}
+    for k in rng.choice(N_KEYS, 12, replace=False).tolist():
+        n = int(rng.integers(1, 5))
+        vs = sorted({(int(rng.integers(3)), int(rng.integers(20)), int(rng.integers(4)))
+                     for _ in range(n)})
+        kind = order if order != "mixed" else ["ascending", "descending", "equal"][k % 3]
+        if kind == "descending":
+            vs = vs[::-1]
+        elif kind == "equal":
+            vs = [vs[0]] * n
+        per_key[f"k{k}"] = vs
+    out = []
+    while per_key:
+        key = sorted(per_key)[int(rng.integers(len(per_key)))]
+        out.append((key, per_key[key].pop(0)))
+        if not per_key[key]:
+            del per_key[key]
+    return out
+
+
+@pytest.mark.parametrize("loaded", [False, True])
+@pytest.mark.parametrize("order", ["ascending", "descending", "equal", "mixed"])
+def test_apply_many_count_on_repeated_keys(order, loaded):
+    rng = np.random.default_rng(["ascending", "descending", "equal", "mixed"].index(order))
+    table = pcrdt.CRDTTable(N_KEYS, VB, device="cpu")
+    if loaded:
+        rows = torch.arange(N_KEYS)
+        pcrdt.load_rows(table, rows, pcrdt.seeded_words(1, rows, table.words))
+    ref = rcrdt.DeltaCRDTStore()
+    ref.apply_many([rcrdt.Update(k, v, rcrdt.Version(*vtuple(ver)))
+                    for k, (v, ver) in table.full_state().items()])
+    for _ in range(3):
+        batch = _repeats(rng, order)
+        payload = {(k, v): rng.bytes(VB) for k, v in batch}
+        want = ref.apply_many([rcrdt.Update(k, payload[k, v], rcrdt.Version(*v))
+                               for k, v in batch])
+        got = table.apply_many([pcrdt.Update(k, payload[k, v], pcrdt.Version(*v))
+                                for k, v in batch])
+        assert got == want
+        assert _state(table) == _ref_state(ref)
+
+
+def test_warehouse_key_interning():
+    table = pcrdt.CRDTTable(0, 120, n_warehouses=101, items_per_warehouse=1000, device="cpu")
+    assert (table.w_base, table.n_rows) == (0, 101_000)
+    for row in [0, 9, 10, 999, 1000, 1009, 10_000, 100_999]:
+        key = table.key_of(row)
+        assert table.row_of(key) == row
+        assert int(table.key_lengths(torch.tensor([row]))) == len(key)
+    assert table.key_of(1005) == "w1:i5" and table.key_of(10_002) == "w10:i2"
+    for bad in ["w101:i0", "w1:i1000", "w1:5", "w01:i5", "w1:i05", "w1", "k3", "h0:0", "wx:i1"]:
+        with pytest.raises(KeyError):
+            table.row_of(bad)
+    mixed = pcrdt.CRDTTable(20, 8, n_regions=2, hot_set_size=3, n_warehouses=2,
+                            items_per_warehouse=4, device="cpu")
+    keys = [mixed.key_of(r) for r in range(mixed.n_rows)]
+    assert keys[19:22] == ["k19", "h0:0", "h0:1"] and keys[26:] == ["w0:i0", "w0:i1", "w0:i2",
+                                                                   "w0:i3", "w1:i0", "w1:i1",
+                                                                   "w1:i2", "w1:i3"]
+    got, _ = mixed.key_bytes(torch.arange(mixed.n_rows))
+    assert [bytes(r).rstrip(b"\0").decode() for r in got.tolist()] == keys
