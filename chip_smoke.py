@@ -257,7 +257,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    reads and updates, 4 operations a transaction, 10% rewrites; 5 nodes on
    the paper's testbed trace at 120 Mbps, 1000 transactions a node an
    epoch, kcenter, 20 epochs of flat, then of geococo.  Gated: (a) at
-   1,000,000 loaded keys and 5 epochs, flat and geococo under the event and
+   200,000 loaded keys and 5 epochs, flat and geococo under the event and
    barrier engines on the card equal to the same runs on the CPU (every
    ``EpochStats`` and ``RunSummary`` field, ``FilterStats``, the message
    matrix, both digests; modeled filter CPU); (b) at full size flat and
@@ -285,12 +285,33 @@ Phases, each of which fails the run (nonzero exit, no result line):
    NewOrder count; (d) (b)'s settings from an empty store with the
    filter's CPU modeled, flat then geococo, one state: printed in the form
    in which ``tests/tpcc_full_reference.py`` prints the reference's runs
-   on the CPU, and set beside (b)'s runs.
+   on the CPU, and set beside (b)'s runs;
+34. the streaming engine and per-node views (``streaming=True``,
+   ``staleness_feedback=True``: each node's view a table on the card,
+   advanced by joining whole committed epochs through ``crdt_merge_rows``
+   once the stitched simulation has delivered them): (a) Fig 11a's streaming
+   arm (33 (a)'s TPCC-A geococo regime, 10 ms) and the abort curve (the same
+   regime, kcenter, with feedback, at 10, 80 and 320 ms), 10 epochs each, on
+   the card equal to the CPU as in 32 (a) (the view lags and the views'
+   joins too); the 80 ms run again with ``stream_mode="resim"``, equal to
+   the incremental one; without feedback, the stream's digests those of
+   the formula engine's run; (b) phase 32's loaded 10^7-key YCSB store and
+   testbed, geococo, 20 epochs at 320 ms, streaming without feedback (its
+   digests, commits and WAN bytes those of phase 32's geococo run) and with
+   it (five views on the card; its write-write aborts the first run's),
+   then phase 33 (b)'s loaded TPC-C database with feedback, 10 epochs;
+   (c) ``crdt_merge_rows`` launched once a commit and once a view and epoch
+   merged, every other kernel 0.  Printed: each epoch's wall split with the
+   views' part, the stream's wall and pipeline overlap against the
+   formula's, read aborts and view lags, peak memory against the tables'
+   reckoning, the device busy share over 5 epochs of a third feedback run
+   (its views made before the window), each view's join against the bound
+   of the rows it took, and the host's side of those joins, traced.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13, 15-30, 32 and 33 each on an empty card after the
+released, and phases 11, 13, 15-30 and 32-34 each on an empty card after the
 phase before; phase 31 allocates nothing on the card.  Each phase prints its
 wall time.
 
@@ -572,7 +593,10 @@ MESH_PARTS = (
 # WAN_CHECK_EPOCHS epochs, card against CPU; the device busy share over
 # WAN_PROFILE_EPOCHS epochs of a second geococo run
 WAN_KEYS, WAN_VALUE_BYTES, WAN_TXNS, WAN_EPOCHS = 10_000_000, 1000, 1000, 20
-WAN_CHECK_KEYS, WAN_CHECK_EPOCHS, WAN_PROFILE_EPOCHS = 1_000_000, 5, 5
+# (gate (a)'s keys cut from 10^6 to 2 x 10^5 for the whole script's time,
+# 1108 s at 10^6 with phase 34 on an H100 host: its CPU runs hash and
+# gather the whole loaded store)
+WAN_CHECK_KEYS, WAN_CHECK_EPOCHS, WAN_PROFILE_EPOCHS = 200_000, 5, 5
 # the phase's limit: 60 s on a store that started empty; a loaded store adds
 # its load and each run's two digests over ~10.2 GB a stream, hashed on the
 # host at its SHA-256 rate (~10 s a run), and the gate's CPU runs' digests
@@ -601,6 +625,20 @@ TPCC_TXNS, TPCC_EPOCHS = 1000, 10
 TPCC_CHECK_TXNS, TPCC_CHECK_EPOCHS = 40, 10
 TPCC_BENCH_REGIONS = (0, 0, 0, 0, 1)
 TPCC_MIXES_ORDER = ("TPCC-A", "TPCC-B", "TPCC-C", "TPCC-D")
+# phase 34: the streaming engine and per-node views.  (a) Fig 11a's streaming
+# arm (benchmarks/bench_throughput.py:85-91: phase 33 (a)'s TPCC-A geococo
+# regime, MILP, 10 ms, streaming) and the abort curve
+# (benchmarks/bench_abort_curve.py:46-60: the same regime, kcenter, streaming
+# with feedback) at STREAM_CURVE_MS, TPCC_CHECK_EPOCHS epochs each, card
+# against CPU; (b) phase 32's loaded YCSB store and phase 33 (b)'s loaded
+# TPC-C database at full size, geococo, at STREAM_EPOCH_MS: the abort
+# curve's top cadence, near the full-size stores' sync makespan (~0.3-0.6 s),
+# so that the views join epochs within the run (at the default 10 ms no
+# epoch commits anywhere before the last one arrives, and no view would
+# ever advance); the busy share over STREAM_PROFILE_EPOCHS epochs of a third
+# YCSB feedback run
+STREAM_CURVE_MS = (10.0, 80.0, 320.0)
+STREAM_EPOCH_MS, STREAM_PROFILE_EPOCHS, STREAM_PHASE_LIMIT_S = 320.0, 5, 90.0
 # phase 31: the band that the card's peak memory over a step (after a reset)
 # must hold against the dry-run's peak of live storage: the caching
 # allocator rounds each block up to 512 bytes and keeps cuBLAS' workspaces,
@@ -4253,9 +4291,10 @@ def run_dryrun_check(card_steps: dict, tp_history: list, mesh_counts: dict) -> N
                {"model": MESH_STEPS * (dec["model"] + dec["merge"]), "merge": MESH_STEPS * dec["merge"]})
 
 
-def wan_cluster(strategy: str, barrier: bool, keys: int, device, *, modeled: bool):
+def wan_cluster(strategy: str, barrier: bool, keys: int, device, *, modeled: bool, **engine):
     """Phase 32's engine, generator and trace (the seeds of
-    ``examples/geo_database_sim_torch.py``)."""
+    ``examples/geo_database_sim_torch.py``); ``engine``: more of the
+    engine's settings (phase 34's streaming ones)."""
     import numpy as np
 
     from repro_torch.core.latency import jitter_trace
@@ -4263,7 +4302,8 @@ def wan_cluster(strategy: str, barrier: bool, keys: int, device, *, modeled: boo
     from repro_torch.core.workload import YCSBConfig, YCSBGenerator
 
     eng = GeoCluster(EngineConfig(n_nodes=len(WAN_REGIONS), sync_strategy=strategy,
-                                  planner="kcenter", barrier=barrier, modeled_cpu=modeled),
+                                  planner="kcenter", barrier=barrier, modeled_cpu=modeled,
+                                  **engine),
                      bandwidth_mbps=WAN_BANDWIDTH_MBPS, seed=3, device=device)
     gen = YCSBGenerator(YCSBConfig(n_keys=keys, theta=0.99, read_ratio=0.5, ops_per_txn=4,
                                    value_bytes=WAN_VALUE_BYTES, rewrite_frac=0.1),
@@ -4285,13 +4325,14 @@ def lan_wan_bandwidth(regions, n: int, wan_mbps: float, lan_mbps: float = 10_000
 
 
 def tpcc_cluster(strategy: str, device, *, full: bool, mix: str = "TPCC-A",
-                 modeled: bool):
+                 modeled: bool, planner: str = "milp", **engine):
     """Phase 33's engine, generator and trace.  Not ``full``:
     ``benchmarks/bench_throughput.py``'s regime (``_run_tpcc``, ``:25-62``:
     the paper's testbed trace of ``benchmarks/common.py:30-55``, 10 Gbps LAN
-    and 15 Mbps WAN, 100 warehouses x 50 items, remote 0.25, MILP, seed 3);
-    ``full``: TPCC_WAREHOUSES x TPCC_ITEMS on phase 32's testbed at
-    WAN_BANDWIDTH_MBPS, kcenter."""
+    and 15 Mbps WAN, 100 warehouses x 50 items, remote 0.25, MILP unless
+    ``planner`` says otherwise, seed 3); ``full``: TPCC_WAREHOUSES x
+    TPCC_ITEMS on phase 32's testbed at WAN_BANDWIDTH_MBPS, kcenter.
+    ``engine``: more of the engine's settings (phase 34's streaming ones)."""
     import numpy as np
 
     from repro_torch.core.latency import jitter_trace
@@ -4301,7 +4342,7 @@ def tpcc_cluster(strategy: str, device, *, full: bool, mix: str = "TPCC-A",
     n = len(WAN_REGIONS)
     if full:
         eng = GeoCluster(EngineConfig(n_nodes=n, sync_strategy=strategy, planner="kcenter",
-                                      modeled_cpu=modeled),
+                                      modeled_cpu=modeled, **engine),
                          bandwidth_mbps=WAN_BANDWIDTH_MBPS, seed=3, device=device)
         cfg = TPCCConfig(n_warehouses=TPCC_WAREHOUSES, mix=mix, remote_prob=0.10,
                          items_per_warehouse=TPCC_ITEMS)
@@ -4309,8 +4350,9 @@ def tpcc_cluster(strategy: str, device, *, full: bool, mix: str = "TPCC-A",
     else:
         geo = strategy == "geococo"
         wan = np.array(TPCC_BENCH_REGIONS)[:, None] != np.array(TPCC_BENCH_REGIONS)[None, :]
+        engine.setdefault("epoch_ms", 10.0)
         eng = GeoCluster(EngineConfig(n_nodes=n, grouping=geo, filtering=geo, tiv=geo,
-                                      planner="milp", epoch_ms=10.0, modeled_cpu=modeled),
+                                      planner=planner, modeled_cpu=modeled, **engine),
                          bandwidth_mbps=lan_wan_bandwidth(TPCC_BENCH_REGIONS, n, 15.0),
                          wan_mask=wan, seed=3, device=device)
         cfg = TPCCConfig(n_warehouses=100, mix=mix, remote_prob=0.25, items_per_warehouse=50)
@@ -4353,9 +4395,10 @@ def loaded_store(eng, gen) -> tuple[float, float]:
 def card_equals_cpu(tag: str, runs: list, dev) -> dict:
     """Each ``(label, build)`` run on the card and on the CPU (``build(device)``
     gives the engine, generator, trace, epochs and transactions a node, the
-    store already set): every report field and both digests equal, one
-    commit an epoch through the join kernel on the card.  Returns the card's
-    reports by label."""
+    store already set): every report field and both digests equal (and the
+    views' joins, on the streaming engine with per-node views), one commit
+    an epoch and one join a view and epoch merged through the join kernel on
+    the card.  Returns the card's reports by label."""
     import torch
 
     from repro_torch.kernels.crdt_merge import ops as merge_ops
@@ -4367,19 +4410,22 @@ def card_equals_cpu(tag: str, runs: list, dev) -> dict:
             eng, gen, trace, epochs, txns = build(device)
             before = merge_ops.crdt_merge_rows.launches
             rs = eng.run(gen, trace, txns_per_node=txns, n_epochs=epochs)
-            out[str(device)] = (wan_fields(rs), merge_ops.crdt_merge_rows.launches - before)
+            out[str(device)] = (dict(wan_fields(rs), view_merges=eng.view_merges),
+                                merge_ops.crdt_merge_rows.launches - before)
             reports.setdefault(label, rs)
             del eng, gen
         (card, launches), (cpu, _) = out[str(dev)], out["cpu"]
         differ = sorted(k for k in card if card[k] != cpu[k])
         if differ:
             fail(f"{tag} (a) {label}: the card's run differs from the CPU's in {differ}")
-        if launches != epochs:
-            fail(f"{tag} (a) {label}: {launches} join launches in {epochs} epochs (one commit "
-                 f"an epoch)")
+        views = card["view_merges"]
+        if launches != epochs + views:
+            fail(f"{tag} (a) {label}: {launches} join launches in {epochs} epochs and {views} "
+                 f"views' joins (one commit an epoch)")
         print(f"{tag} (a) {label}, {epochs} epochs: the card's run equals the CPU's (every "
               f"EpochStats and RunSummary field, FilterStats, msg_matrix, digest "
-              f"{card['state_digest'][:12]}...); {launches} join launches")
+              f"{card['state_digest'][:12]}...); {launches} join launches"
+              + (f" ({views} of them the views')" if views else ""))
         torch.cuda.empty_cache()
     return reports
 
@@ -4409,12 +4455,14 @@ def wan_times_text(times: list[dict]) -> str:
 
 
 @contextlib.contextmanager
-def join_calls():
+def join_calls(tables: list | None = None):
     """``(rows, rows taken)`` of each ``crdt_merge_rows`` call the store
     makes inside the block, filled in when it ends: the name the store
     calls is bound to a wrapper that keeps each call's ranks for the block's
     length (the launches are the kernel's own), and the rows taken are
-    counted after it, so the main path makes no launch or sync more."""
+    counted after it, so the main path makes no launch or sync more.
+    ``tables``, where given, gets the address of the table each call
+    joined into (the store's or a view's)."""
     from repro_torch.core import crdt
 
     calls, kept, inner = [], [], crdt.crdt_merge_rows
@@ -4422,6 +4470,8 @@ def join_calls():
     def noting(table, rows, cur_rank, *args):
         out_rank = inner(table, rows, cur_rank, *args)
         kept.append((rows.numel(), cur_rank, out_rank))
+        if tables is not None:
+            tables.append(table.data_ptr())
         return out_rank
 
     crdt.crdt_merge_rows = noting
@@ -4691,6 +4741,296 @@ def run_tpcc(dev, counters: dict) -> dict:
             "seconds": took, **prof}
 
 
+def stream_check(dev) -> None:
+    """Phase 34 (a): Fig 11a's streaming arm and the abort curve, each on
+    the card and on the CPU (modeled filter CPU), equal; incremental against
+    resim; the stream's digests against the formula engine's."""
+    def bench(epoch_ms: float, *, streaming: bool = True, feedback: bool = False,
+              planner: str = "milp", mode: str = "incremental"):
+        def make(device):
+            eng, gen, trace = tpcc_cluster("geococo", device, full=False, modeled=True,
+                                           planner=planner, epoch_ms=epoch_ms,
+                                           streaming=streaming, staleness_feedback=feedback,
+                                           stream_mode=mode)
+            return eng, gen, trace, TPCC_CHECK_EPOCHS, TPCC_CHECK_TXNS
+        return make
+
+    arm, formula = "Fig 11a's streaming arm (TPCC-A geococo, MILP, 10 ms)", "its formula engine"
+    curve = {ms: f"abort curve (TPCC-A geococo, kcenter, feedback) at {ms:g} ms"
+             for ms in STREAM_CURVE_MS}
+    mid = STREAM_CURVE_MS[1]
+    resim = f"{curve[mid]}, resim"
+    card = card_equals_cpu("[34]", [
+        (arm, bench(10.0)), (formula, bench(10.0, streaming=False)),
+        *[(curve[ms], bench(ms, feedback=True, planner="kcenter")) for ms in STREAM_CURVE_MS],
+        (resim, bench(mid, feedback=True, planner="kcenter", mode="resim"))], dev)
+    if wan_fields(card[resim]) != wan_fields(card[curve[mid]]):
+        fail(f"[34] (a) {mid:g} ms: stream_mode='resim' differs from 'incremental'")
+    a, f = card[arm], card[formula]
+    if (a.state_digest, a.value_digest, a.committed) != (f.state_digest, f.value_digest,
+                                                          f.committed):
+        fail("[34] (a) the streaming arm's digests differ from the formula engine's")
+    print(f"[34] (a) {mid:g} ms: stream_mode='resim' equals 'incremental' (every field, both "
+          f"digests); the streaming arm's digests {a.state_digest[:12]}... and commits "
+          f"({a.committed:,}) are the formula engine's; wall {a.wall_s * 1e3:.2f} ms streamed "
+          f"against the formula's {f.wall_s * 1e3:.2f} ms (pipeline overlap "
+          f"{a.pipeline_overlap_ms:.2f} ms), tpmTotal {a.throughput_tps * 60:,.0f} against "
+          f"{f.throughput_tps * 60:,.0f} (modeled)")
+    for ms in STREAM_CURVE_MS:
+        rs = card[curve[ms]]
+        print(f"[34] (a) abort curve at {ms:g} ms: read-abort rate {rs.read_abort_rate:.4f} "
+              f"({rs.read_aborts:,} of {rs.total_txns:,}), write-write aborts {rs.ww_aborts:,}, "
+              f"view lag mean {rs.summary.view_lag_mean:.3f} max {rs.summary.view_lag_max}; "
+              f"wall {rs.wall_s * 1e3:.2f} ms")
+
+
+def table_bytes(table) -> int:
+    """The device bytes of a table: values, lengths, versions, flags."""
+    return sum(x.numel() * x.element_size()
+               for x in (table.values, table.lengths, table.versions, table.present))
+
+
+def view_joins(eng, calls: list, tables: list) -> list:
+    """The ``(rows, taken)`` of the joins into the views (not the store)."""
+    store = eng.store.values.data_ptr()
+    return [c for c, ptr in zip(calls, tables) if ptr != store]
+
+
+def stream_main_run(tag: str, build, epochs: int, txns: int, counters: dict) -> dict:
+    """One streaming run at full size from a store loaded before its epochs
+    (its set-up timed apart), through ``run()``: gated (c) one join a
+    commit and one a view and epoch merged, every other kernel 0; printed
+    each epoch's wall split and stream, the run's wall against the
+    formula's, aborts, view lags and peak memory against the tables'
+    reckoning."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    eng, gen, trace = build()
+    make_s, load_s = loaded_store(eng, gen)
+    cfg = eng.cfg
+
+    def main_path():
+        t0 = time.perf_counter()
+        rs = eng.run(gen, trace, txns_per_node=txns, n_epochs=epochs)
+        torch.cuda.synchronize()
+        return rs, time.perf_counter() - t0
+
+    tables = []
+    with join_calls(tables) as calls:
+        (rs, wall), counts = counted(counters, main_path)
+    peak = torch.cuda.max_memory_allocated()
+    commits, views = eng.store.merges, eng.view_merges
+    others = {k: v for k, v in counts.items() if k != "crdt_merge_rows" and v}
+    joins = view_joins(eng, calls, tables)
+    if others or commits != epochs or counts["crdt_merge_rows"] != commits + views \
+            or len(joins) != views:
+        fail(f"{tag} (c): kernel counts {counts} in {epochs} epochs: {commits} commits, "
+             f"{views} views' joins ({len(joins)} seen)")
+    times = list(eng.epoch_times)
+    epochs_s = sum(sum(t.values()) for t in times)
+    n_views = cfg.n_nodes if cfg.staleness_feedback else 0
+    one = table_bytes(eng.store)
+    formula = [max(cfg.epoch_ms, e.exec_ms, e.sync_ms) for e in rs.epochs]
+    print(f"{tag}: store made in {make_s * 1e3:.1f} ms and loaded ({eng.store.n_rows:,} rows) "
+          f"in {load_s * 1e3:.1f} ms; {epochs} epochs at {cfg.epoch_ms:g} ms, "
+          f"{epochs_s * 1e3:.1f} ms ({epochs_s / epochs * 1e3:.2f} ms an epoch): "
+          f"{wan_times_text(times)}, the views' advances "
+          f"{sum(t['views_s'] for t in times) * 1e3:.1f}; the rest of run() (the views' "
+          f"copies, the two digests) {(wall - epochs_s) * 1e3:.1f} ms")
+    for e, (st, t) in enumerate(zip(rs.epochs, times)):
+        print(f"    epoch {e:2d}: draws {t['draw_s'] * 1e3:6.1f} ms, copy {t['copy_s'] * 1e3:5.1f}, "
+              f"device {t['device_s'] * 1e3:6.1f}, host {t['host_s'] * 1e3:6.1f}, views "
+              f"{t['views_s'] * 1e3:5.1f}; committed {st.committed}, read aborts "
+              f"{st.read_aborts}, write-write {st.ww_aborts}, view lag {st.view_lag_mean:.1f} "
+              f"(max {st.view_lag_max}); sync {st.sync_ms:.2f} ms, stream commit "
+              f"{st.stream_commit_ms:.2f} ms, wall {st.wall_ms:.2f} against the formula's "
+              f"{formula[e]:.2f}")
+    print(f"{tag}: committed {rs.committed:,}, aborted {rs.aborted:,} (read {rs.read_aborts:,}, "
+          f"write-write {rs.ww_aborts:,}); read-abort rate {rs.read_abort_rate:.4f}; view lag "
+          f"mean {rs.summary.view_lag_mean:.3f}, max {rs.summary.view_lag_max}; streamed wall "
+          f"{rs.wall_s * 1e3:.2f} ms against the formula's {sum(formula):.2f} ms (pipeline "
+          f"overlap {rs.pipeline_overlap_ms:.2f} ms); WAN {rs.wan_bytes / 1e6:.3f} MB; "
+          f"{commits} commits and {views} views' joins through crdt_merge_rows, every other "
+          f"kernel 0; peak {peak / 1e9:.2f} GB against {1 + n_views} tables of "
+          f"{one / 1e9:.3f} GB = {(1 + n_views) * one / 1e9:.2f} GB reckoned")
+    out = {"rs": rs, "launches": counts["crdt_merge_rows"], "views": views, "peak": peak,
+           "times": times}
+    del eng, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def stream_profile(tag: str, build, txns: int) -> dict:
+    """The device busy share: the profiler's device time over
+    STREAM_PROFILE_EPOCHS epochs of a third feedback run (the streaming
+    engine's epochs alone: its store loaded and its five views copied
+    before the window opens, no digests) against the wall of that window;
+    each view's join, launch by launch, against the bound of the rows it
+    took; then the host's side of those joins (``view_join_trace``)."""
+    import torch
+
+    from repro_torch.core.sinks import RunAggregator
+
+    eng, gen, trace = build()
+    loaded_store(eng, gen)
+    # the views that the run copies from the store at its start, made here:
+    # the window holds no copy of the store
+    views, view_next = eng._start_views()
+    torch.cuda.synchronize()
+    eng._start_views = lambda: (views, view_next)
+    # each epoch's committed rows, as the views join them
+    deltas, commit = [], eng._commit
+
+    def keeping(batch):
+        out = commit(batch)
+        deltas.append(out[3])
+        return out
+
+    eng._commit = keeping
+    window = {}
+
+    def epochs():
+        t0 = time.perf_counter()
+        eng._run_streaming(gen, trace, txns, STREAM_PROFILE_EPOCHS, RunAggregator())
+        torch.cuda.synchronize()
+        window["wall_ms"] = (time.perf_counter() - t0) * 1e3
+
+    tables = []
+    with join_calls(tables) as calls:
+        dev_ms, by_name, each_ms = profile_launches(epochs, "crdt_merge_rows_kernel")
+    store = eng.store.values.data_ptr()
+    joined = [(c, ms) for c, ptr, ms in zip(calls, tables, each_ms) if ptr != store]
+    bounds = [join_bound(k, eng.store.words, 4, taken)[0] for (k, taken), _ in joined]
+    view_ms = sum(ms for _, ms in joined)
+    if len(each_ms) != len(calls) or len(joined) != eng.view_merges:
+        fail(f"{tag} the profiled window: {len(each_ms)} kernels, {len(calls)} joins, "
+             f"{len(joined)} into views of {eng.view_merges}")
+    copies = sum(ms for name, ms in by_name.items() if "Memcpy DtoD" in name)
+    views_s = sum(t["views_s"] for t in eng.epoch_times)
+    wall_ms = window["wall_ms"]
+    if dev_ms is not None:
+        print(f"{tag} {STREAM_PROFILE_EPOCHS} epochs of a third feedback run (its views made "
+              f"before), profiled: {dev_ms:.2f} ms of device time (torch.profiler) in "
+              f"{wall_ms:.1f} ms of that window's wall: busy {dev_ms / wall_ms:.1%}; device "
+              f"copies {copies:.3f} ms; the largest:")
+        for name, kms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"    {kms:9.3f} ms  {name[:100]}")
+    print(f"{tag} the views' joins in those epochs: {len(joined)} launches of "
+          f"crdt_merge_rows_kernel, {view_ms:.4f} ms of device time against a bound of "
+          f"{sum(bounds):.4f} ms (bytes of the rows taken)"
+          + (f": {sum(bounds) / view_ms:.1%}; the views' advances {views_s * 1e3:.3f} ms "
+             f"between synchronises, {views_s * 1e3 / len(joined):.3f} ms a join; each:"
+             if joined else ""))
+    for ((k, taken), ms), bound in zip(joined, bounds):
+        print(f"    {k:,} rows, {taken:,} taken: {ms * 1e3:.2f} us against {bound * 1e3:.3f} us, "
+              f"{bound / ms:.1%}")
+    host = view_join_trace(tag, views[0], deltas)
+    del eng, gen, views, deltas
+    torch.cuda.empty_cache()
+    return {"busy": None if dev_ms is None else dev_ms / wall_ms, "view_kernel_ms": view_ms,
+            "view_bound_ms": sum(bounds), "view_joins_profiled": len(joined),
+            "views_ms_a_join": views_s * 1e3 / len(joined) if joined else None, **host}
+
+
+def view_join_trace(tag: str, view, deltas: list) -> dict:
+    """The host's side of a view's join: ``CRDTTable.join_rows`` of each
+    committed epoch kept from the profiled window into one view again (a
+    join is idempotent: the view keeps its rows, so the kernel moves no
+    payload, and the host runs the same calls), first each join between
+    two synchronises, then all of them under torch.profiler with the host's
+    activity too: the host time by operation, the device time in all."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not deltas:
+        return {}
+    walls = []
+    for d in deltas:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        view.join_rows(*d)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for d in deltas:
+            view.join_rows(*d)
+        torch.cuda.synchronize()
+    ops = prof.key_averages()
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in ops
+                   if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0),
+                  key=lambda x: -x[1])
+    device_ms = sum(getattr(e, "self_device_time_total", 0.0) / 1e3 for e in ops
+                    if e.device_type == DeviceType.CUDA)
+    host_ms = sum(ms for _, ms, _ in host)
+    launches = sum(n for key, _, n in host if key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                                      "cudaLaunchKernelExC"))
+    n = len(deltas)
+    print(f"{tag} the host's side of a view's join ({n} committed epochs of the profiled "
+          f"window joined into one view again): {sum(walls) / n:.3f} ms a join between "
+          f"synchronises (each: {', '.join(f'{w:.3f}' for w in walls)}); traced, "
+          f"the host's operations {host_ms / n:.3f} ms "
+          f"({launches / n:.1f} kernel launches a join), the device {device_ms / n:.4f} ms; "
+          f"the host's largest, ms a join:")
+    for key, ms, cnt in host[:8]:
+        print(f"    {ms / n:8.4f} ms  {cnt / n:5.1f} calls  {key[:80]}")
+    return {"view_join_wall_ms": sum(walls) / n, "view_join_host_ms": host_ms / n,
+            "view_join_device_ms": device_ms / n}
+
+
+def run_stream(dev, counters: dict, wan: dict) -> dict:
+    """Phase 34: the streaming engine and per-node views.  (a) card against
+    CPU; (b) the loaded YCSB store without and with feedback (phase 32's
+    geococo run's digests, commits and WAN bytes; the same write-write
+    aborts) and the loaded TPC-C database with feedback; (c) the launches;
+    a profiled window of a third feedback run."""
+    import torch
+
+    t_phase = time.perf_counter()
+    memory_line("[34]", "start")
+    stream_check(dev)
+
+    def ycsb(feedback: bool):
+        return lambda: wan_cluster("geococo", False, WAN_KEYS, dev, modeled=False, streaming=True,
+                                   staleness_feedback=feedback, epoch_ms=STREAM_EPOCH_MS)
+
+    print(f"[34] (b) phase 32's YCSB store ({WAN_KEYS:,} records x {WAN_VALUE_BYTES} B, loaded) "
+          f"and testbed, geococo, {WAN_EPOCHS} epochs at {STREAM_EPOCH_MS:g} ms, filter CPU "
+          f"measured on the card")
+    off = stream_main_run("[34] (b) YCSB streamed", ycsb(False), WAN_EPOCHS, WAN_TXNS, counters)
+    geo = wan["runs"]["geococo"]["rs"]
+    got = (off["rs"].state_digest, off["rs"].value_digest, off["rs"].committed,
+           off["rs"].wan_bytes)
+    if got != (geo.state_digest, geo.value_digest, geo.committed, geo.wan_bytes):
+        fail(f"[34] (b) the streamed YCSB run {got} differs from phase 32's geococo run")
+    print(f"[34] (b) the streamed run ends in phase 32's geococo state: digests "
+          f"{geo.state_digest[:12]}..., {geo.committed:,} committed, WAN "
+          f"{geo.wan_bytes / 1e6:.3f} MB")
+    on = stream_main_run("[34] (b) YCSB with five views", ycsb(True), WAN_EPOCHS, WAN_TXNS,
+                         counters)
+    if [e.ww_aborts for e in on["rs"].epochs] != [e.ww_aborts for e in off["rs"].epochs]:
+        fail("[34] (b) the feedback run's write-write aborts differ from the streamed run's")
+    print(f"[34] (b) with the views: the same write-write aborts, epoch for epoch "
+          f"({on['rs'].ww_aborts:,}); {on['rs'].read_aborts:,} read aborts more")
+    print(f"[34] (b) phase 33 (b)'s TPC-C database ({TPCC_WAREHOUSES} x {TPCC_ITEMS:,} rows of "
+          f"{TPCC_VALUE_BYTES} B, loaded), TPCC-A, geococo, feedback, {TPCC_EPOCHS} epochs at "
+          f"{STREAM_EPOCH_MS:g} ms")
+    tp = stream_main_run("[34] (b) TPC-C with six tables",
+                         lambda: tpcc_cluster("geococo", dev, full=True, modeled=False,
+                                              streaming=True, staleness_feedback=True,
+                                              epoch_ms=STREAM_EPOCH_MS),
+                         TPCC_EPOCHS, TPCC_TXNS, counters)
+    prof = stream_profile("[34]", ycsb(True), WAN_TXNS)
+    memory_line("[34]", "end")
+    took = time.perf_counter() - t_phase
+    print(f"[34] took {took:.1f} s (aim {STREAM_PHASE_LIMIT_S:g} s)")
+    runs = (off, on, tp)
+    return {"launches": sum(r["launches"] for r in runs),
+            "view_joins": sum(r["views"] for r in runs), "seconds": took, **prof}
+
+
 def run_topk(shapes, dev, filter_ms: float) -> dict:
     """Phase 20: geococo's chunked top-k (``topk_select``: f32 g + r, per
     chunk of 2048 the top 10% by magnitude, the sent values and the new
@@ -4941,9 +5281,17 @@ def main() -> None:
     # ---- 33. TPC-C: the benchmark's regime card against CPU, then 10^7 loaded rows
     torch.cuda.empty_cache()
     tpcc = run_tpcc(dev, counters)
-    entries["crdt_merge_rows"]["launches"] = wan["launches"] + tpcc["launches"]
     entries["crdt_merge_rows"]["tpcc_kernel_ms"] = tpcc["kernel_ms"]
     entries["crdt_merge_rows"]["tpcc_bound_ms"] = tpcc["kernel_bound_ms"]
+
+    # ---- 34. the streaming engine and per-node views, on the emptied card
+    torch.cuda.empty_cache()
+    stream = run_stream(dev, counters, wan)
+    entries["crdt_merge_rows"]["launches"] = (wan["launches"] + tpcc["launches"]
+                                              + stream["launches"])
+    entries["crdt_merge_rows"]["view_joins"] = stream["view_joins"]
+    entries["crdt_merge_rows"]["view_kernel_ms"] = stream["view_kernel_ms"]
+    entries["crdt_merge_rows"]["view_bound_ms"] = stream["view_bound_ms"]
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

@@ -6,8 +6,8 @@ by ``EngineConfig.__post_init__`` and ``GeoCluster.__init__``), in one
 place, as data — so adding a feature flag means adding a
 :class:`ConfigRule`, and tooling (tests, docs) can enumerate the full
 compatibility matrix without reading constructor code.  The reference's
-rules for its streaming modes and its ``ServeConfig`` come with those
-planes (ROADMAP §1, W1 and W3).
+rules for its ``ServeConfig`` come with the serving plane (ROADMAP §1,
+W3).
 
 Rules are keyed by the config class *name* — deliberately stringly, so
 this module imports nothing from ``repro_torch.core`` and sits below it in
@@ -141,6 +141,14 @@ RULES: list[ConfigRule] = [
             "serve=ServeConfig(...) requires streaming=True: the serving "
             "plane reads per-node view staleness off the stitched "
             "multi-epoch simulation's measured commit times",
+        ),
+    ),
+    ConfigRule(
+        "stream-mode-value", "EngineConfig", "range", "config",
+        lambda cfg: (
+            "stream_mode must be 'incremental' (O(E) appendable timeline) "
+            "or 'resim' (the O(E²) stitch-and-rerun reference oracle)"
+            if cfg.stream_mode not in ("incremental", "resim") else None
         ),
     ),
     ConfigRule(

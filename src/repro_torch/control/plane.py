@@ -180,10 +180,11 @@ class ControlPlane:
         is purely reactive.
     plan_fn:
         ``fn(lat) -> GroupPlan``.  ``None`` installs a default
-        :func:`~repro_torch.core.planner.best_plan` search ranked by the
-        plan's latency cost; a consumer with better context (the WAN
-        engine's bandwidth/payload-aware ranking) may :meth:`bind_planner`
-        over the default once.
+        :func:`~repro_torch.core.planner.best_plan` search (ranked by the
+        plan's latency cost, or with ``rank_payload_bytes`` by a simulated
+        makespan); a consumer with better context (the WAN engine's
+        bandwidth/payload-aware ranking) may :meth:`bind_planner` over the
+        default once.
     replan_threshold / replan_sustain:
         The damped Replanner's sustained-deviation policy (Sec 4.2).
     degrade_factor / recover_factor / degrade_sustain / link_alpha:
@@ -197,6 +198,18 @@ class ControlPlane:
         hops ride overlay relays, Sec 5).  ``ring_tiv`` governs the relay
         *ring* search and defaults to False because ``relay_psum`` executes
         direct hops — see :func:`relay_ring_order`.
+    rank_payload_bytes / rank_bandwidth_mbps / barrier / rank_streaming:
+        Replan-scoring context for the built-in default planner.  With a
+        payload estimate, candidate plans are ranked by the simulated round
+        makespan — the event-driven transfer-DAG critical path by default
+        (``barrier=True`` scores the legacy phase-sum), so replans reward
+        grouping that overlaps gather/exchange/scatter stages.
+        ``rank_streaming=True`` scores two *stitched* epochs instead of one
+        isolated round, so replans additionally reward cross-epoch
+        pipelining (epoch e+1 gathers streaming under epoch e scatters) —
+        the ranking a streaming replication engine executes.  Consumers
+        with live context (the replication engine's payload-EWMA planner)
+        still override via :meth:`bind_planner`.
     """
 
     def __init__(
@@ -215,7 +228,17 @@ class ControlPlane:
         tiv_margin: float = 0.05,
         planner: str = "kcenter",
         planner_time_limit_s: float = 5.0,
+        rank_payload_bytes: float | None = None,
+        rank_bandwidth_mbps: float | np.ndarray | None = None,
+        barrier: bool = False,
+        rank_streaming: bool = False,
     ):
+        if rank_streaming and barrier:
+            # fail at construction, not mid-run at the first replan
+            raise ValueError(
+                "rank_streaming=True scores the event engine; barrier=True "
+                "has no cross-epoch semantics"
+            )
         self.view = as_view(view) if view is not None else None
         self.tiv = tiv
         self.ring_tiv = ring_tiv
@@ -225,6 +248,10 @@ class ControlPlane:
             plan_fn = lambda lat: best_plan(  # noqa: E731
                 lat, tiv=tiv, tiv_margin=tiv_margin, method=planner,
                 time_limit_s=planner_time_limit_s,
+                payload_bytes=rank_payload_bytes,
+                bandwidth_mbps=rank_bandwidth_mbps,
+                barrier=barrier,
+                streaming=rank_streaming,
             )
         self.replanner = Replanner(
             plan_fn, threshold=replan_threshold, sustain=replan_sustain

@@ -8,7 +8,11 @@ per-key last-writer-wins registers under the total version order
 ``(epoch, seq, node)``, joined through ``kernels.crdt_merge.crdt_merge_rows``
 (the CUDA kernel on the card).  The join is the lattice max by version, so
 it is commutative, associative and idempotent (ACI) and a batch merges to
-the same state whatever its order and multiplicity.
+the same state whatever its order and multiplicity.  A node's snapshot
+view (the streaming engine's ``staleness_feedback``) is a table of its own,
+a :meth:`CRDTTable.snapshot` of the store, advanced by joining whole
+committed epochs held on the device as distinct rows
+(:meth:`CRDTTable.top_rows`) through :meth:`CRDTTable.join_rows`.
 
 Key strings are interned to rows by formula, three families one after
 another: ``k{i}`` is row ``i``; ``h{r}:{h}`` (a region's hot set) is row
@@ -551,6 +555,8 @@ class CRDTTable:
         return done
 
     def snapshot(self) -> "CRDTTable":
+        """A copy of the table on its device (its own tensors; ``merges``
+        starts at 0): a node's snapshot view."""
         out = CRDTTable.__new__(CRDTTable)
         out.__dict__.update(self.__dict__)
         out.values, out.versions = self.values.clone(), self.versions.clone()
@@ -566,42 +572,54 @@ class CRDTTable:
         int32 values, ``(N, 3)`` versions, ``(N,)`` value lengths, all
         ``value_bytes`` where not given) into the table; returns how many
         rows changed (not the reference's count of updates that changed
-        the store: :meth:`apply_many` gives that).
-
-        Each row is first reduced to its top version (the first of equal
-        tops, as sequential applies keep it), so the rows are distinct; the
-        batch is joined straight into the table's rows through
-        ``crdt_merge_rows``, which writes only the rows it takes.  The
-        kernel compares int32 versions: each side's
-        ``(epoch, seq, node)`` becomes its dense rank among the ``2K``
-        versions of this join, an order key exact for every pair it
-        compares whatever the triples' range (``Version.ZERO`` ranks lowest;
-        equal versions share a rank, and the kernel keeps the table's row on
-        a tie, as the reference's ``apply`` does).  The full triple and the
-        length of the winner go back into ``versions`` and ``lengths``.
-        """
+        the store: :meth:`apply_many` gives that).  :meth:`top_rows`, then
+        :meth:`join_rows`."""
         if rows.numel() == 0:
             return 0
+        return int(self.join_rows(*self.top_rows(rows, values, versions, lengths)).sum())
+
+    def top_rows(self, rows: torch.Tensor, values: torch.Tensor, versions: torch.Tensor,
+                 lengths: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+        """A batch (as :meth:`merge_rows` takes it) reduced to each row's
+        top version, the first of equal tops as sequential applies keep it:
+        distinct int64 rows, their values, versions and int64 lengths."""
         rows = rows.to(torch.int64)
         if lengths is None:
             lengths = torch.full_like(rows, self.value_bytes)
+        if rows.numel() == 0:
+            return rows, values, versions, lengths.to(torch.int64)
         order = lexsort([-version_rank(versions), rows])
         srt = rows[order]
         top = torch.ones_like(srt, dtype=torch.bool)
         top[1:] = srt[1:] != srt[:-1]
         pick = order[top]
-        keys, new_val, new_ver = rows[pick], values[pick].contiguous(), versions[pick]
+        return rows[pick], values[pick].contiguous(), versions[pick], lengths[pick].to(torch.int64)
+
+    def join_rows(self, keys: torch.Tensor, values: torch.Tensor, versions: torch.Tensor,
+                  lengths: torch.Tensor) -> torch.Tensor:
+        """Join distinct rows (:meth:`top_rows`' output) straight into the
+        table's rows through ``crdt_merge_rows``, which writes only the rows
+        it takes; returns the mask of rows taken, on the device (no sync).
+        The kernel compares int32 versions: each side's ``(epoch, seq,
+        node)`` becomes its dense rank among the ``2K`` versions of this
+        join, an order key exact for every pair it compares whatever the
+        triples' range (``Version.ZERO`` ranks lowest; equal versions share
+        a rank, and the kernel keeps the table's row on a tie, as the
+        reference's ``apply`` does).  The full triple and the length of the
+        winner go back into ``versions`` and ``lengths``."""
         k = keys.numel()
+        if k == 0:
+            return torch.zeros(0, dtype=torch.bool, device=keys.device)
         cur_ver = self.versions[keys]
-        rank = version_rank(torch.cat([cur_ver, new_ver])).to(torch.int32)
+        rank = version_rank(torch.cat([cur_ver, versions])).to(torch.int32)
         cur_rank, new_rank = rank[:k].contiguous(), rank[k:].contiguous()
-        out_rank = crdt_merge_rows(self.values, keys, cur_rank, new_val, new_rank)
+        out_rank = crdt_merge_rows(self.values, keys, cur_rank, values, new_rank)
         self.merges += 1
         took = out_rank != cur_rank
-        self.versions[keys] = torch.where(took[:, None], new_ver, cur_ver)
-        self.lengths[keys] = torch.where(took, lengths[pick].to(torch.int64), self.lengths[keys])
+        self.versions[keys] = torch.where(took[:, None], versions, cur_ver)
+        self.lengths[keys] = torch.where(took, lengths, self.lengths[keys])
         self.present[keys] = self.present[keys] | took
-        return int(took.sum())
+        return took
 
     def _changes(self, rows: torch.Tensor, versions: torch.Tensor) -> int:
         """How many updates of a batch would change the table applied one

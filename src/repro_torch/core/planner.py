@@ -495,6 +495,7 @@ def best_plan(
     bandwidth_mbps: float | np.ndarray | None = None,
     filter_keep: float = 1.0,
     barrier: bool = False,
+    streaming: bool = False,
 ) -> GroupPlan:
     """GeoCoCo's guided planner: search k in the band around k*, keep the best.
 
@@ -513,17 +514,28 @@ def best_plan(
     while slow groups still gather scores better than the phase-sum would
     suggest); pass ``barrier=True`` to rank by the legacy barrier phase-sum
     instead (what a barrier engine will actually execute).  The MILP itself
-    stays Algorithm 1's latency formulation.  (The reference's ranking by
-    two stitched epochs, ``streaming=True``, comes with the streaming
-    engine, ROADMAP §1, W1.)
+    stays Algorithm 1's latency formulation.
+
+    ``streaming=True`` (the streaming replication engine's ranking context)
+    scores candidates by the makespan of **two stitched epochs**
+    (:func:`~repro_torch.core.schedule.stitch_schedules`) instead of one isolated
+    round: a plan whose epoch-``e+1`` gathers pipeline under epoch-``e``
+    scatters scores the throughput it will actually sustain, which can
+    rank-invert plans that tie on the single-round critical path.
 
     The guided band is the ~order-of-magnitude planning-cost reduction vs
     exhaustive k in [2, N-1] claimed in Sec 6.4.
     """
+    if streaming and barrier:
+        raise ValueError(
+            "streaming ranking runs the event engine; barrier=True has no "
+            "cross-epoch semantics"
+        )
+
     def rank(p: GroupPlan) -> float:
         if payload_bytes is None:
             return plan_cost(lat, p, tiv=tiv, tiv_margin=tiv_margin)
-        from .schedule import hierarchical_schedule
+        from .schedule import hierarchical_schedule, stitch_schedules
         from .simulator import WANSimulator
 
         bw = np.inf if bandwidth_mbps is None else bandwidth_mbps
@@ -535,6 +547,8 @@ def best_plan(
             p, payload_bytes, group_payload_bytes=gp, lat=lat,
             tiv=tiv, tiv_margin=tiv_margin,
         )
+        if streaming:
+            sched = stitch_schedules([sched, sched], n=lat.shape[0])
         return sim.run(sched).makespan_ms
 
     try:

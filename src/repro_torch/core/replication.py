@@ -15,13 +15,33 @@ work there, and the commit joins the table through the CUDA merge kernel.
 The planner, the schedules and the WAN simulator stay host numpy: they
 model the network, not the database's state.
 
-Throughput is the reference's formula model (``streaming=False``): an
-epoch's wall clock is ``max(epoch_ms, execution, synchronization)``.  The
-synchronization round runs as an event-driven transfer DAG by default, or
-as the pre-DAG barrier phases with ``barrier=True``; both commit the same
-bytes.  The cross-epoch streaming engine, per-node views, the serving
-plane, compression, schedule verification and the Raft plane are refused
-with ``NotImplementedError`` naming their ROADMAP item.
+Throughput model, two regimes (the reference's):
+
+* **formula pipelining** (``streaming=False``): an epoch's wall clock is
+  ``max(epoch_ms, execution, synchronization)``.  The synchronization round
+  runs as an event-driven transfer DAG by default, or as the pre-DAG
+  barrier phases with ``barrier=True``; both commit the same bytes.
+* **streaming simulation** (``streaming=True``): consecutive epochs' DAGs
+  are stitched (``schedule.stitch_schedules``; epoch e+1's gathers out of
+  node s wait only for s's epoch-e commit) and timed on the host by one
+  event-driven simulation, appended epoch by epoch onto a
+  ``stream.StreamingTimeline`` (``stream_mode="incremental"``) or re-run
+  over the whole prefix (``"resim"``, the O(E²) oracle; equal times).
+  ``EpochStats.wall_ms`` is the measured inter-commit gap and
+  ``pipeline_overlap_ms`` what the formula would have charged on top.  The
+  commits are the formula engine's, so the digests are too.
+
+  ``staleness_feedback=True`` feeds the measured timing back into OCC:
+  each node keeps its own snapshot view, a ``CRDTTable`` on the card made
+  by ``store.snapshot()`` when ``run()`` starts, advanced by joining whole
+  committed epochs (:func:`advance_views`, one ``crdt_merge_rows`` launch a
+  view and epoch) once the stitched simulation has delivered that node's
+  inbound transfers.  Each node's reads and rewrites come from its view,
+  each aggregator filters against its own view, and validation still runs
+  against the global store: read aborts become a function of the WAN.
+
+The serving plane, compression, schedule verification and the Raft plane
+are refused with ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,14 +58,16 @@ from . import strategies as _strategies
 from .crdt import CRDTTable
 from .occ import EpochBatch, validate_epoch_detailed
 from .planner import GroupPlan
-from .schedule import TransmissionSchedule
-from .simulator import WANSimulator
-from .sinks import RunAggregator, RunSummary
+from .schedule import TransmissionSchedule, stitch_schedules
+from .simulator import EpochLatencyCycle, WANSimulator, node_commit_ms
+from .sinks import EpochContext, RunAggregator, RunSummary
+from .stream import StreamingTimeline
 from .whitedata import FilterStats
 from ..analysis.config_check import validate_config
 from ..device import resolve_device, synchronize
 
-__all__ = ["EngineConfig", "EpochStats", "RunStats", "GeoCluster", "RaftCluster"]
+__all__ = ["EngineConfig", "EpochStats", "RunStats", "GeoCluster", "RaftCluster",
+           "advance_views"]
 
 
 def _refused(what: str, item: str) -> NotImplementedError:
@@ -71,13 +93,19 @@ class EngineConfig:
     epoch_ms: float = 10.0
     txn_exec_us: float = 40.0
     barrier: bool = False              # True = pre-DAG barrier-phase engine
-    streaming: bool = False            # refused (ROADMAP §1, W1)
-    staleness_feedback: bool = False   # refused (W2)
+    streaming: bool = False            # True = cross-epoch stitched simulation
+    # per-node snapshot views advanced by the measured stream (streaming
+    # only): reads and rewrites versioned against the executing node's view
+    staleness_feedback: bool = False
     serve: object | None = None        # refused (W3)
     # modeled bytes-proportional filter CPU instead of the measured wall
     # clock (on the card: after a synchronise), so a run is deterministic
     modeled_cpu: bool = False
     filter_cpu_ns_per_byte: float = 2.0
+    # how the streaming engine times the stream: "incremental" appends each
+    # epoch onto a StreamingTimeline (O(E)); "resim" re-stitches and re-runs
+    # the whole prefix (the O(E²) oracle), with equal times
+    stream_mode: str = "incremental"
     # keep_epochs=False keeps only the trailing `stats_window` EpochStats;
     # run totals come from the online RunSummary either way
     keep_epochs: bool = True
@@ -109,14 +137,8 @@ class EngineConfig:
             _strategies.get("schedule", self.schedule_name)
         if self.filter_name is not None:
             _strategies.get("filter", self.filter_name)
-        if self.staleness_feedback:
-            raise _refused("staleness_feedback=True (per-node snapshot views)",
-                           "W2: per-node views")
         if self.serve is not None:
             raise _refused("serve= (the serving plane)", "W3: serve/")
-        if self.streaming:
-            raise _refused("streaming=True (the cross-epoch stitched engine)",
-                           "W1: core/stream.py")
         if self.compression:
             raise _refused(f"compression ({self.resolved_sync_strategy})",
                            "W4: compression")
@@ -158,8 +180,15 @@ class EpochStats:
     ``sync_serial_ms`` what a fully serialized round would cost and
     ``sync_overlap_ms = sync_serial_ms - sync_ms`` the work the DAG hid,
     split into filter CPU off the critical path (``sync_cpu_hidden_ms``)
-    and cross-stage WAN overlap (``sync_wan_overlap_ms``).  The streaming
-    and per-node-view fields stay 0 here."""
+    and cross-stage WAN overlap (``sync_wan_overlap_ms``).  On the
+    streaming engine ``wall_ms`` is the measured inter-commit gap,
+    ``stream_commit_ms`` the epoch's absolute commit in the stitched
+    stream and ``pipeline_overlap_ms = max(epoch_ms, exec_ms, sync_ms) -
+    wall_ms`` (negative for an epoch paying off a backlog); under
+    ``staleness_feedback`` ``view_lag_mean`` / ``view_lag_max`` are how many
+    epochs the nodes' views lagged when the epoch executed, over nodes.
+    ``read_aborts`` (stale read versions, only under feedback) and
+    ``ww_aborts`` may overlap."""
 
     epoch: int
     n_txns: int
@@ -273,11 +302,18 @@ class RunStats:
         """Total CPU/WAN work hidden by the pipelined transmission DAG."""
         return self._total("sync_overlap_ms", "sync_overlap_ms")
 
+    @property
+    def pipeline_overlap_ms(self) -> float:
+        """Total wall clock the streaming pipeline saved against the
+        ``max(epoch, exec, sync)`` formula (0.0 off the streaming engine)."""
+        return self._total("pipeline_overlap_ms", "pipeline_overlap_ms")
+
 
 @dataclasses.dataclass
 class _EpochRound:
     """The timing-independent product of one epoch: the schedule to time,
-    the commit outcome, and the planning/filtering context the stats need."""
+    the commit outcome, and the planning/filtering context the stats need;
+    ``delta`` the committed writes on the card when views must merge them."""
 
     epoch: int
     schedule: TransmissionSchedule
@@ -287,10 +323,47 @@ class _EpochRound:
     read_aborts: int
     ww_aborts: int
     exec_ms: float
+    node_exec_ms: np.ndarray
     filter_cpu_ms: float
     fstats: FilterStats | None
     plan_method: str
     modeled_cpu_ms: float
+    delta: tuple[torch.Tensor, ...] | None = None
+
+
+def advance_views(
+    n_nodes: int,
+    views: list[CRDTTable],
+    view_next: np.ndarray,
+    pending: dict[int, tuple[torch.Tensor, ...]],
+    commit_at,
+    n_done: int,
+    now_ms: float,
+) -> None:
+    """Join every epoch the stitched simulation has delivered to each node
+    by ``now_ms`` into that node's view.  Views advance a contiguous epoch
+    prefix (a node merges epoch k only once its k-th inbound transfers have
+    all delivered — the same per-node commit dependency ``stitch_schedules``
+    gates sends on), a whole epoch's committed rows at a time through
+    ``CRDTTable.join_rows`` (one ``crdt_merge_rows`` launch, no sync).
+
+    ``commit_at(k, i)`` reads the measured commit time of epoch ``k`` at
+    node ``i`` for ``k < n_done``; ``pending`` maps epoch -> its committed
+    rows on the card, reduced to distinct rows once at the commit
+    (``CRDTTable.top_rows``: rows, values, versions, lengths), and is the
+    retention frontier: entries every view has merged past
+    (``< view_next.min()``) are released here, because no view will ever
+    ask for them again.  The reference's ``advance_views``, with
+    device tables for its dict stores."""
+    for i in range(n_nodes):
+        nxt = int(view_next[i])
+        while nxt < n_done and commit_at(nxt, i) <= now_ms + 1e-9:
+            views[i].join_rows(*pending[nxt])
+            nxt += 1
+        view_next[i] = nxt
+    floor = int(view_next.min()) if len(view_next) else 0
+    for k in [k for k in pending if k < floor]:
+        del pending[k]
 
 
 class GeoCluster:
@@ -312,7 +385,14 @@ class GeoCluster:
     each epoch's wall split (of the epochs whose ``EpochStats`` the run
     keeps): host draws, the batch's copy to the device
     with its gathers, device work (validation, filters, commit, each ending
-    in a synchronise) and host work (planning, schedules, the simulator).
+    in a synchronise) and host work (planning, schedules, the simulator);
+    on the streaming engine also ``views_s``, the views' advances between
+    two synchronises (0 without ``staleness_feedback``).
+
+    Under ``staleness_feedback`` each node's view starts as a copy of the
+    store as it stands when ``run()`` begins (the reference starts its views
+    empty even on a store set before ``run()``: fault 15, not copied), and
+    ``view_merges`` counts the run's view advances that launched the join.
     """
 
     def __init__(
@@ -352,6 +432,7 @@ class GeoCluster:
         self.epoch_times: collections.deque[dict[str, float]] = collections.deque(
             maxlen=None if cfg.keep_epochs else cfg.stats_window)
         self._device_s = 0.0
+        self.view_merges = 0
 
     def _wire_control(self, control):
         """Attach to (or build) the network control plane and bind the
@@ -387,18 +468,23 @@ class GeoCluster:
             bandwidth_mbps=self.bandwidth,
             filter_keep=self._keep_ewma if cfg.filtering else 1.0,
             barrier=cfg.barrier,
+            streaming=cfg.streaming,
         )
         self.plan_time_s += time.perf_counter() - t0  # lint: allow[wallclock] plan-search cost
         return plan
 
-    def _on_device(self, fn, *args, **kw):
-        """``fn(*args, **kw)`` between two synchronises, its wall time added
-        to the epoch's device work; returns its result and that time."""
+    def _synced(self, fn, *args, **kw):
+        """``fn(*args, **kw)`` between two synchronises; returns its result
+        and its wall time."""
         synchronize(self.device)
         t0 = time.perf_counter()  # lint: allow[wallclock] measured device work
         out = fn(*args, **kw)
         synchronize(self.device)
-        dt = time.perf_counter() - t0  # lint: allow[wallclock] measured device work
+        return out, time.perf_counter() - t0  # lint: allow[wallclock] measured device work
+
+    def _on_device(self, fn, *args, **kw):
+        """:meth:`_synced`, its wall time added to the epoch's device work."""
+        out, dt = self._synced(fn, *args, **kw)
         self._device_s += dt
         return out, dt
 
@@ -414,11 +500,20 @@ class GeoCluster:
         out[:] = sums.tolist()
         return out
 
-    def _prepare_epoch(self, epoch: int, batch: EpochBatch, lat: np.ndarray) -> _EpochRound:
+    def _prepare_epoch(self, epoch: int, batch: EpochBatch, lat: np.ndarray,
+                       views: list[CRDTTable] | None = None) -> _EpochRound:
         """Everything timing-independent about one epoch: planning, filtering,
         schedule construction, deterministic validation and the CRDT commit.
         The simulator never touches the store, so the commit is the same
-        whichever engine (barrier / event) later times the round."""
+        whichever engine (barrier / event / streaming) later times the round.
+
+        ``views`` (``staleness_feedback`` only) are the per-node snapshot
+        views: each group's aggregator filters against its own view instead
+        of the global store (a stale view holds smaller versions, so the
+        stale and null rules fire less; they stay sound), and the round
+        keeps its committed rows for the views to merge.  Validation always
+        runs against the global store: every replica holds the whole
+        epoch's metadata by commit time."""
         cfg = self.cfg
         n = cfg.n_nodes
         snapshot = self.store  # epoch-start replicated snapshot
@@ -448,9 +543,12 @@ class GeoCluster:
             group_payload = np.zeros(plan.k)
             group_cpu_ms = np.zeros(plan.k)
             fstats = FilterStats()
-            for j, group in enumerate(plan.groups):
+            for j, (group, agg) in enumerate(zip(plan.groups, plan.aggregators)):
                 gbatch = batch.select(batch.node_txns(group))
-                fr, dt = self._on_device(self._filter_fn, gbatch, snapshot)
+                # the aggregator filters against the state it holds: its own
+                # view under staleness_feedback, the global store otherwise
+                fsnap = snapshot if views is None else views[agg]
+                fr, dt = self._on_device(self._filter_fn, gbatch, fsnap)
                 if cfg.filtering:
                     # the no_filter passthrough's byte accounting is not a
                     # filtering cost: the baseline's filter CPU stays 0
@@ -489,7 +587,7 @@ class GeoCluster:
 
         # deterministic global validation against the epoch-start snapshot,
         # then the CRDT join of the committed writes
-        (committed, read_aborts, ww_aborts), _ = self._on_device(self._commit, batch)
+        (committed, read_aborts, ww_aborts, delta), _ = self._on_device(self._commit, batch)
         return _EpochRound(
             epoch=epoch,
             schedule=schedule,
@@ -499,28 +597,37 @@ class GeoCluster:
             read_aborts=read_aborts,
             ww_aborts=ww_aborts,
             exec_ms=exec_ms,
+            node_exec_ms=node_exec_ms,
             filter_cpu_ms=filter_cpu_ms,
             fstats=fstats,
             plan_method=plan_method,
             modeled_cpu_ms=modeled_cpu_ms,
+            delta=delta if views is not None else None,
         )
 
-    def _commit(self, batch: EpochBatch) -> tuple[int, int, int]:
+    def _commit(self, batch: EpochBatch) -> tuple[int, int, int, tuple[torch.Tensor, ...]]:
         """Validate the epoch and join its committed writes into the store;
         returns (committed, read-aborted, write-write-aborted) counts (the
-        generator's transaction ids are unique)."""
+        generator's transaction ids are unique) and the committed rows,
+        reduced to distinct rows (what the views join)."""
         vres = validate_epoch_detailed(batch, self.store)
         ok = vres.committed_mask
         w = ok[batch.write_txn]
         t = batch.write_txn[w]
         vers = torch.stack([batch.epoch[t], batch.seq[t], batch.node[t]], 1)
-        self.store.merge_rows(batch.write_row[w], batch.write_val[w], vers, batch.write_len[w])
+        delta = self.store.top_rows(batch.write_row[w], batch.write_val[w], vers,
+                                    batch.write_len[w])
+        self.store.join_rows(*delta)
         committed, ra, wa = torch.stack([ok.sum(), vres.read_mask.sum(),
                                          vres.ww_mask.sum()]).tolist()
-        return committed, ra, wa
+        return committed, ra, wa, delta
 
-    def _epoch_stats(self, rnd: _EpochRound, sim: WANSimulator, res) -> EpochStats:
-        """Assemble one epoch's stats from its round simulation."""
+    def _epoch_stats(self, rnd: _EpochRound, sim: WANSimulator, res, *,
+                     wall_ms: float | None = None, pipeline_overlap_ms: float = 0.0,
+                     stream_commit_ms: float = 0.0, view_lag_mean: float = 0.0,
+                     view_lag_max: int = 0) -> EpochStats:
+        """Assemble one epoch's stats from its (isolated) round simulation;
+        the streaming engine passes the measured stream's figures."""
         cfg = self.cfg
         schedule = rnd.schedule
         if cfg.barrier:
@@ -551,6 +658,8 @@ class GeoCluster:
             wan_bytes = float((res.link_bytes * self.wan_mask).sum())
         else:
             wan_bytes = res.total_bytes
+        if wall_ms is None:
+            wall_ms = max(cfg.epoch_ms, rnd.exec_ms, res.makespan_ms)
         return EpochStats(
             epoch=rnd.epoch,
             n_txns=rnd.n_txns,
@@ -558,7 +667,7 @@ class GeoCluster:
             aborted=rnd.aborted,
             sync_ms=res.makespan_ms,
             exec_ms=rnd.exec_ms,
-            wall_ms=max(cfg.epoch_ms, rnd.exec_ms, res.makespan_ms),
+            wall_ms=wall_ms,
             wan_bytes=wan_bytes,
             filter_stats=rnd.fstats,
             filter_cpu_ms=rnd.filter_cpu_ms,
@@ -567,18 +676,50 @@ class GeoCluster:
             sync_overlap_ms=sync_overlap_ms,
             sync_cpu_hidden_ms=cpu_hidden_ms,
             sync_wan_overlap_ms=wan_overlap_ms,
+            pipeline_overlap_ms=pipeline_overlap_ms,
+            stream_commit_ms=stream_commit_ms,
             read_aborts=rnd.read_aborts,
             ww_aborts=rnd.ww_aborts,
+            view_lag_mean=view_lag_mean,
+            view_lag_max=view_lag_max,
         )
 
-    def run_epoch(self, epoch: int, batch: EpochBatch, lat: np.ndarray) -> EpochStats:
-        cfg = self.cfg
-        rnd = self._prepare_epoch(epoch, batch, lat)
+    def _round(self, epoch: int, batch: EpochBatch, lat: np.ndarray,
+               views: list[CRDTTable] | None = None):
+        """One epoch prepared and its round simulated in isolation; returns
+        the round, its simulator and its result."""
+        rnd = self._prepare_epoch(epoch, batch, lat, views=views)
         sim = WANSimulator(lat, self.bandwidth, loss=self.loss, rng=self.rng,
-                           barrier=cfg.barrier)
+                           barrier=self.cfg.barrier)
         res = sim.run(rnd.schedule)
         self.msg_matrix += res.msg_matrix
-        return self._epoch_stats(rnd, sim, res)
+        return rnd, sim, res
+
+    def run_epoch(self, epoch: int, batch: EpochBatch, lat: np.ndarray) -> EpochStats:
+        return self._epoch_stats(*self._round(epoch, batch, lat))
+
+    def _draw_batch(self, generator, epoch: int, txns_per_node: int, snapshot):
+        """The epoch's host draws and its batch on the device (``snapshot``
+        the store, or one view a node); returns the batch and the epoch's
+        wall split so far.  The epoch's device work is counted from here."""
+        t0 = time.perf_counter()  # lint: allow[wallclock] epoch wall split
+        draws = generator.draw(epoch, txns_per_node)
+        t1 = time.perf_counter()  # lint: allow[wallclock] epoch wall split
+        batch = generator.to_batch(draws, snapshot)
+        synchronize(self.device)
+        t2 = time.perf_counter()  # lint: allow[wallclock] epoch wall split
+        self._device_s = 0.0
+        return batch, {"draw_s": t1 - t0, "copy_s": t2 - t1, "t2": t2}
+
+    def _close_times(self, times: dict, views_s: float | None = None) -> None:
+        """Keep the epoch's wall split: the draws, the copy, device work and
+        the rest as host work (and on the streaming engine the views')."""
+        t3 = time.perf_counter()  # lint: allow[wallclock] epoch wall split
+        out = {"draw_s": times["draw_s"], "copy_s": times["copy_s"],
+               "device_s": self._device_s, "host_s": t3 - times["t2"] - self._device_s}
+        if views_s is not None:
+            out["views_s"] = views_s
+        self.epoch_times.append(out)
 
     # -- full run ----------------------------------------------------------------
 
@@ -588,28 +729,22 @@ class GeoCluster:
         transactions, epoch ``e`` on ``trace[e % len(trace)]``.  A generator
         (``YCSBGenerator``, ``TPCCGenerator``, a ``DiurnalLoad`` around
         either) gives ``table(device)``, each epoch's host ``draw(epoch,
-        txns_per_node)`` and its ``to_batch(draws, store)`` on the store's
-        device.  The run ends in both digests, from one pass over the
+        txns_per_node)`` and its ``to_batch(draws, snapshot)`` on the store's
+        device (``snapshot`` the store, or under ``staleness_feedback`` one
+        view a node).  The run ends in both digests, from one pass over the
         store."""
         cfg = self.cfg
         n_epochs = n_epochs if n_epochs is not None else len(trace)
         if self.store is None:
             self.store = generator.table(self.device)
         agg = RunAggregator(keep_epochs=cfg.keep_epochs, window=cfg.stats_window)
-        for e in range(n_epochs):
-            lat = trace[e % len(trace)]
-            t0 = time.perf_counter()  # lint: allow[wallclock] epoch wall split
-            draws = generator.draw(e, txns_per_node)
-            t1 = time.perf_counter()  # lint: allow[wallclock] epoch wall split
-            batch = generator.to_batch(draws, self.store)
-            synchronize(self.device)
-            t2 = time.perf_counter()  # lint: allow[wallclock] epoch wall split
-            self._device_s = 0.0
-            agg.on_epoch(self.run_epoch(e, batch, lat))
-            t3 = time.perf_counter()  # lint: allow[wallclock] epoch wall split
-            self.epoch_times.append({"draw_s": t1 - t0, "copy_s": t2 - t1,
-                                     "device_s": self._device_s,
-                                     "host_s": t3 - t2 - self._device_s})
+        if cfg.streaming:
+            self._run_streaming(generator, trace, txns_per_node, n_epochs, agg)
+        else:
+            for e in range(n_epochs):
+                batch, times = self._draw_batch(generator, e, txns_per_node, self.store)
+                agg.on_epoch(self.run_epoch(e, batch, trace[e % len(trace)]))
+                self._close_times(times)
         state_digest, value_digest = self.store.digests()
         return RunStats(
             epochs=agg.epochs,
@@ -619,6 +754,167 @@ class GeoCluster:
             value_digest=value_digest,
             summary=agg.summary,
         )
+
+    # -- the streaming engine ----------------------------------------------------
+
+    def _stream_prefix(self, rounds: list[_EpochRound], lats):
+        """Stitch the epochs prepared so far and run the streaming event
+        simulation over them (``lats`` an ``EpochLatencyCycle``).  Returns
+        (per-node commit-time matrix, stream RoundResult, stitched schedule).
+        The O(E²) oracle (``stream_mode="resim"``): with feedback it
+        re-simulates the whole prefix every epoch."""
+        cfg = self.cfg
+        stitched = stitch_schedules(
+            [r.schedule for r in rounds],
+            node_exec_ms=[r.node_exec_ms for r in rounds],
+            epoch_ms=cfg.epoch_ms,
+            n=cfg.n_nodes,
+        )
+        stream_sim = WANSimulator(lats[0], self.bandwidth, loss=self.loss, rng=self.rng)
+        stream = stream_sim.run(stitched, lats=lats)
+        commits = node_commit_ms(stitched, stream, cfg.n_nodes, len(rounds))
+        return commits, stream, stitched
+
+    def _start_views(self):
+        """Under ``staleness_feedback``: one view a node, each a copy of the
+        store as it stands, and each node's next epoch to merge; else
+        ``(None, None)``."""
+        self.view_merges = 0
+        if not self.cfg.staleness_feedback:
+            return None, None
+        return ([self.store.snapshot() for _ in range(self.cfg.n_nodes)],
+                np.zeros(self.cfg.n_nodes, dtype=int))
+
+    def _advance(self, views, view_next, pending, commit_at, n_done: int, e: int):
+        """Advance the views to epoch ``e``'s arrival, between two
+        synchronises; returns the lag (mean, max) over nodes and the time."""
+        if views is None:
+            return 0.0, 0, 0.0
+        _, dt = self._synced(advance_views, self.cfg.n_nodes, views, view_next, pending,
+                             commit_at, n_done, e * self.cfg.epoch_ms)
+        self.view_merges = sum(v.merges for v in views)
+        lag = e - view_next
+        return (float(lag.mean()) if lag.size else 0.0,
+                int(lag.max()) if lag.size else 0, dt)
+
+    def _run_streaming(self, generator, trace, txns_per_node: int, n_epochs: int,
+                       agg: RunAggregator) -> None:
+        """Cross-epoch streaming: stitch every epoch's DAG and measure real
+        per-epoch commit times from one event-driven simulation.
+
+        Each epoch still runs its round in isolation: that simulation is the
+        reference the stats are split against (sync_ms, the serial/overlap
+        split, byte accounting) and what ``pipeline_overlap_ms`` compares
+        the measured wall clock with.  The commits are the formula engine's,
+        so with ``staleness_feedback=False`` the digests are too.
+
+        With ``staleness_feedback=True`` epoch ``e`` executes when it
+        arrives (``e * epoch_ms``) against each node's view, which has
+        joined exactly the epochs whose inbound transfers the stream has
+        delivered to that node by then; the read rule then aborts the
+        transactions whose reads the backlog made stale.  Each epoch's
+        committed rows stay on the card until every view has merged past
+        them.
+
+        ``stream_mode="incremental"`` appends each epoch onto a
+        ``StreamingTimeline`` that simulates only its events (under
+        bandwidth admission an earlier epoch's times are final the moment it
+        is appended), pushes each epoch's stats at once and keeps the
+        commit rows only down to the slowest view's frontier;
+        ``stream_mode="resim"`` re-simulates the whole stitched prefix (the
+        O(E²) oracle, equal times) and assembles the stats at the end."""
+        if self.cfg.stream_mode == "incremental":
+            self._run_streaming_incremental(generator, trace, txns_per_node, n_epochs, agg)
+        else:
+            self._run_streaming_resim(generator, trace, txns_per_node, n_epochs, agg)
+
+    def _run_streaming_incremental(self, generator, trace, txns_per_node: int,
+                                   n_epochs: int, agg: RunAggregator) -> None:
+        cfg = self.cfg
+        lat_cycle = EpochLatencyCycle(trace, max(n_epochs, 1))
+        timeline = StreamingTimeline(cfg.n_nodes, bandwidth_mbps=self.bandwidth,
+                                     loss=self.loss, epoch_ms=cfg.epoch_ms)
+        views, view_next = self._start_views()
+        # each epoch's committed rows on the card until every view has them
+        pending: dict[int, tuple[torch.Tensor, ...]] = {}
+        prev_commit = 0.0
+        for e in range(n_epochs):
+            lat = lat_cycle[e]
+            lag_mean, lag_max, views_s = self._advance(views, view_next, pending,
+                                                       timeline.commit_at,
+                                                       timeline.n_epochs, e)
+            batch, times = self._draw_batch(generator, e, txns_per_node,
+                                            self.store if views is None else views)
+            rnd, sim, res = self._round(e, batch, lat, views)
+            # O(this epoch's events); its times are final once appended
+            et = timeline.append_epoch(rnd.schedule, lat, node_exec_ms=rnd.node_exec_ms)
+            commit = et.finish_max_ms
+            wall = commit - prev_commit
+            prev_commit = commit
+            formula = max(cfg.epoch_ms, rnd.exec_ms, res.makespan_ms)
+            agg.on_epoch(self._epoch_stats(rnd, sim, res, wall_ms=wall,
+                                           pipeline_overlap_ms=formula - wall,
+                                           stream_commit_ms=commit, view_lag_mean=lag_mean,
+                                           view_lag_max=lag_max),
+                         EpochContext(epoch=e, commit_row=et.commit_ms, lat=lat))
+            if views is not None:
+                pending[e] = rnd.delta
+                # commit rows below the slowest view's frontier are never
+                # read again
+                timeline.evict_commit_rows(int(view_next.min()))
+            else:
+                timeline.evict_commit_rows(timeline.n_epochs)
+            self._close_times(times, views_s)
+
+    def _run_streaming_resim(self, generator, trace, txns_per_node: int,
+                             n_epochs: int, agg: RunAggregator) -> None:
+        cfg = self.cfg
+        lat_cycle = EpochLatencyCycle(trace, max(n_epochs, 1))
+        rounds: list[_EpochRound] = []
+        sims: list[WANSimulator] = []
+        results = []
+        lags: list[tuple[float, int]] = []
+        views, view_next = self._start_views()
+        pending: dict[int, tuple[torch.Tensor, ...]] = {}
+        commit_ms = np.zeros((0, cfg.n_nodes))
+        stream = stitched = None
+        for e in range(n_epochs):
+            lat = lat_cycle[e]
+            lag_mean, lag_max, views_s = self._advance(
+                views, view_next, pending, lambda k, i, _c=commit_ms: float(_c[k, i]),
+                commit_ms.shape[0], e)
+            lags.append((lag_mean, lag_max))
+            batch, times = self._draw_batch(generator, e, txns_per_node,
+                                            self.store if views is None else views)
+            rnd, sim, res = self._round(e, batch, lat, views)
+            rounds.append(rnd)
+            sims.append(sim)
+            results.append(res)
+            if views is not None:
+                pending[e], rnd.delta = rnd.delta, None
+                # measured staleness for the next epoch's views; the last
+                # prefix is the whole stream the stats read
+                commit_ms, stream, stitched = self._stream_prefix(rounds, lat_cycle)
+            self._close_times(times, views_s)
+        if not rounds:
+            return
+        if stream is None:
+            commit_ms, stream, stitched = self._stream_prefix(rounds, lat_cycle)
+        # each epoch's absolute commit mark in one grouped pass
+        epoch_of = np.array([t.epoch for t in stitched.transfers])
+        commit_marks = np.full(len(rounds), -np.inf)
+        np.maximum.at(commit_marks, epoch_of, stream.finish_ms)
+        prev_commit = 0.0
+        for k, (rnd, sim, res) in enumerate(zip(rounds, sims, results)):
+            commit = float(commit_marks[k])
+            wall = commit - prev_commit
+            prev_commit = commit
+            formula = max(cfg.epoch_ms, rnd.exec_ms, res.makespan_ms)
+            agg.on_epoch(self._epoch_stats(rnd, sim, res, wall_ms=wall,
+                                           pipeline_overlap_ms=formula - wall,
+                                           stream_commit_ms=commit, view_lag_mean=lags[k][0],
+                                           view_lag_max=lags[k][1]),
+                         EpochContext(epoch=k, commit_row=commit_ms[k], lat=lat_cycle[k]))
 
 
 class RaftCluster:

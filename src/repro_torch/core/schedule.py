@@ -35,7 +35,7 @@ Per-node message-count accounting backs the paper's round guarantee
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable
+from typing import Iterable, Sequence
 
 import numpy as np
 
@@ -49,6 +49,8 @@ __all__ = [
     "all_to_all_schedule",
     "hierarchical_schedule",
     "leader_schedule",
+    "stitch_schedules",
+    "StitchState",
     "messages_per_node",
     "max_messages_per_node",
 ]
@@ -72,9 +74,12 @@ class Transfer:
     that overlaps other groups' in-flight WAN transfers.
 
     ``src == dst`` marks a **local compute stage** (no wire, no NIC, no
-    byte/message accounting).  ``epoch`` tags the transfer's epoch in a
-    stitched multi-epoch schedule, which the reference's streaming engine
-    builds (not ported yet, ROADMAP §1, W1).
+    byte/message accounting): the streaming multi-epoch engine models
+    per-node transaction execution and the epoch cadence clock this way.
+
+    ``epoch`` tags the transfer's position in a stitched multi-epoch
+    schedule (see :func:`stitch_schedules`); the event simulator resolves
+    per-epoch propagation from it when given a latency-matrix stack.
     """
 
     src: int
@@ -353,6 +358,166 @@ def leader_schedule(
     return TransmissionSchedule(
         transfers, label=label + "+geococo", phase_of=tuple(ranks)
     )
+
+
+# ---------------------------------------------------------------------------
+# Cross-epoch streaming (GeoGauss-style pipelining of consecutive rounds)
+# ---------------------------------------------------------------------------
+
+
+def stitch_schedules(
+    rounds: Sequence[TransmissionSchedule],
+    *,
+    node_exec_ms: Sequence[Sequence[float]] | None = None,
+    epoch_ms: float = 0.0,
+    n: int | None = None,
+    label: str = "stream",
+) -> TransmissionSchedule:
+    """Stitch consecutive epochs' DAGs into one streaming schedule.
+
+    The key property (the GeoGauss streaming model, paper Sec 2.1): epoch
+    ``e+1``'s transfers out of node ``s`` depend only on **node s's epoch-e
+    commit** — the delivery of every epoch-e transfer *into s* — never on a
+    global epoch sink.  A node whose scatter arrived early executes and
+    gathers epoch ``e+1`` while other nodes' epoch-e scatters are still in
+    flight, so consecutive WAN rounds pipeline.
+
+    Per epoch ``k`` the stitched DAG gains two kinds of local compute stages
+    (``src == dst`` transfers — no wire, no accounting):
+
+    * a ``clock`` chain (when ``epoch_ms > 0``): epoch ``k``'s execution
+      cannot start before ``k * epoch_ms`` — transactions arrive at the
+      epoch cadence, not earlier;
+    * one ``exec`` stage per node: ``compute_ms = node_exec_ms[k][i]`` —
+      node i's local transaction execution for epoch ``k``, after its
+      epoch-``k-1`` commit and its own epoch-``k-1`` exec stage (a node
+      executes epochs serially).  Every epoch-``k`` wire transfer with
+      source ``i`` depends on it.
+
+    Admission ranks (``phase_of``) are offset per epoch, so the event
+    engine's bandwidth admission keeps epoch ``e+1`` exchanges from starving
+    epoch-e scatters on a shared NIC while leaving the gather/scatter
+    overlap intact (gathers ride member->aggregator NIC directions that
+    scatters never touch).  A corollary of admission: an earlier epoch's
+    measured times are final the moment that epoch is stitched — later
+    epochs' flows can never slow them — which is what lets the
+    staleness-feedback OCC loop re-simulate the stitched *prefix* as epochs
+    append and trust the per-node commit times it already consumed
+    (:func:`~repro_torch.core.simulator.node_commit_ms` extracts exactly the
+    per-node commit dependency set this builder gates sends on).
+
+    Beyond the replication engine, the reference's
+    ``RaftCluster.pipelined_commit_ms`` (not ported yet, ROADMAP §1, W6)
+    stitches ``batches_in_flight`` copies of a ``leader_schedule``
+    (``epoch_ms=0``: no cadence clock) so in-flight Raft batches serialize
+    on the leader's NIC instead of replicating for free.
+    """
+    if n is None:
+        n = 0
+        for sk in rounds:
+            for t in sk.transfers:
+                n = max(n, t.src + 1, t.dst + 1, t.via + 1)
+        if node_exec_ms is not None:
+            for row in node_exec_ms:
+                n = max(n, len(row))
+    if n <= 0:
+        raise ValueError("cannot infer node count from empty schedules")
+
+    st = StitchState(n, epoch_ms=epoch_ms)
+    flat: list[Transfer] = []
+    ranks: list[int] = []
+    for k, sk in enumerate(rounds):
+        row = node_exec_ms[k] if node_exec_ms is not None else None
+        seg, seg_ranks = st.append(sk, row)
+        flat.extend(seg)
+        ranks.extend(seg_ranks)
+    return TransmissionSchedule(flat, label=label, phase_of=tuple(ranks))
+
+
+class StitchState:
+    """The per-epoch step of :func:`stitch_schedules`, factored out so the
+    incremental timeline (:class:`repro_torch.core.stream.StreamingTimeline`) and
+    the one-shot stitcher build *the same* stream structure by construction.
+
+    Owns the cross-epoch frontier: per-node inbound commit indices
+    (``prev_commit``), per-node exec-stage indices (``prev_exec``), the
+    cadence clock-chain tail (``prev_clock``) and the running admission
+    rank offset (``rank_base``).  Every :meth:`append` emits one epoch's
+    stitched segment — transfers whose dependency indices are **global**
+    (into the concatenated stream) and their admission ranks — and advances
+    the frontier.  Concatenating the segments of ``k`` appends is exactly
+    ``stitch_schedules(rounds[:k])``.
+    """
+
+    def __init__(self, n: int, *, epoch_ms: float = 0.0):
+        if n <= 0:
+            raise ValueError("node count must be positive")
+        self.n = n
+        self.epoch_ms = float(epoch_ms)
+        self.epoch = 0                      # next epoch to be appended
+        self.size = 0                       # transfers emitted so far
+        self.rank_base = 0
+        self.prev_commit: dict[int, list[int]] = {i: [] for i in range(n)}
+        self.prev_exec: dict[int, int] = {}
+        self.prev_clock: int | None = None
+
+    def frontier(self) -> list[int]:
+        """Global indices a future epoch's dependencies may reference: the
+        last epoch's per-node commit transfers, exec stages and clock tail.
+        Everything earlier is unreachable from appended epochs — the
+        timeline evicts its finish-time state down to this set."""
+        out: list[int] = []
+        if self.prev_clock is not None:
+            out.append(self.prev_clock)
+        out.extend(self.prev_exec.values())
+        for lst in self.prev_commit.values():
+            out.extend(lst)
+        return out
+
+    def append(
+        self, sk: TransmissionSchedule,
+        node_exec_row: Sequence[float] | None = None,
+    ) -> tuple[list[Transfer], list[int]]:
+        k = self.epoch
+        base = self.size
+        seg: list[Transfer] = []
+        ranks: list[int] = []
+        if self.epoch_ms > 0.0 and k >= 1:
+            clock_deps = () if self.prev_clock is None else (self.prev_clock,)
+            self.prev_clock = base + len(seg)
+            seg.append(Transfer(0, 0, 0.0, tag="clock", deps=clock_deps,
+                                compute_ms=self.epoch_ms, epoch=k))
+            ranks.append(self.rank_base)
+        exec_idx: dict[int, int] = {}
+        for i in range(self.n):
+            deps: list[int] = []
+            if self.prev_clock is not None:
+                deps.append(self.prev_clock)
+            if i in self.prev_exec:
+                deps.append(self.prev_exec[i])
+            deps.extend(self.prev_commit[i])
+            cms = 0.0
+            if node_exec_row is not None and i < len(node_exec_row):
+                cms = float(node_exec_row[i])
+            exec_idx[i] = base + len(seg)
+            seg.append(Transfer(i, i, 0.0, tag="exec", deps=tuple(deps),
+                                compute_ms=cms, epoch=k))
+            ranks.append(self.rank_base + 1)
+        off = base + len(seg)
+        rk = list(sk.phase_of) if sk.phase_of is not None else sk.dep_levels()
+        commit: dict[int, list[int]] = {i: [] for i in range(self.n)}
+        for j, t in enumerate(sk.transfers):
+            deps_t = tuple(d + off for d in t.deps) + (exec_idx[t.src],)
+            if t.src != t.dst:
+                commit[t.dst].append(base + len(seg))
+            seg.append(dataclasses.replace(t, deps=deps_t, epoch=k))
+            ranks.append(self.rank_base + 2 + rk[j])
+        self.prev_commit = commit
+        self.prev_exec = exec_idx
+        self.rank_base += 2 + (max(rk) + 1 if rk else 0)
+        self.size += len(seg)
+        self.epoch += 1
+        return seg, ranks
 
 
 # registry wiring: transmission-schedule builders are addressable by name so

@@ -25,9 +25,13 @@ Two execution engines over the same wire model:
   in-NIC), and finishes are projected drain events invalidated by a token
   when the NIC population changes.  Events elsewhere in the DAG never touch
   the flow's floating-point state, so a flow's measured times are a pure
-  function of its NIC-local event history.  (The reference's incremental
-  segment replay for its streaming engine builds on this; it comes with
-  that engine, ROADMAP §1, W1.)
+  function of its NIC-local event history.  That locality is what makes
+  **incremental simulation exact**: under bandwidth admission a later
+  epoch's flows never share a NIC in time with an earlier epoch's, so
+  :meth:`WANSimulator.simulate_segment` can replay one appended epoch
+  against carried :class:`NicState` floors and reproduce the full
+  re-simulation's times byte-for-byte
+  (:class:`repro_torch.core.stream.StreamingTimeline` builds on this).
 
   **Bandwidth admission** (``admission=True``, the default): a ready hop is
   *deferred* while either of its NICs still carries undrained flows of a
@@ -42,12 +46,17 @@ Two execution engines over the same wire model:
   greedy ASAP start, which on adversarial matrices (severely
   bandwidth-starved links) can exceed the barrier phase-sum.
 
-Transfers with ``src == dst`` are **local compute stages**: they occupy no
-NIC, move no bytes, take ``compute_ms`` after their dependencies, and are
-excluded from byte/message accounting in both engines.  (The reference's
-stitched multi-epoch runs, ``run(schedule, lats=...)`` with its
-``EpochLatencyCycle`` and ``node_commit_ms``, come with the streaming
-engine, ROADMAP §1, W1.)
+Transfers with ``src == dst`` are **local compute stages** (the streaming
+multi-epoch engine's per-node execution stages): they occupy no NIC, move
+no bytes, take ``compute_ms`` after their dependencies, and are excluded
+from byte/message accounting in both engines.
+
+For stitched multi-epoch schedules (:func:`~repro_torch.core.schedule.stitch_schedules`)
+the event engine accepts ``run(schedule, lats=[lat_0, lat_1, ...])``: each
+transfer's propagation is taken from its epoch's latency matrix (the trace
+the replication engine iterates), while bandwidth/loss stay constructor-
+fixed.  The barrier engine rejects latency stacks — cross-epoch streaming
+has no barrier-phase semantics.
 
 * **barrier** (``barrier=True``): the pre-DAG semantics, kept for regression
   comparison.  Phases (the schedule's derived compatibility view) are
@@ -84,9 +93,62 @@ import numpy as np
 from .schedule import Transfer, TransmissionSchedule
 
 __all__ = [
+    "EpochLatencyCycle",
+    "NicState",
     "RoundResult",
     "WANSimulator",
+    "epoch_commit_row",
+    "node_commit_ms",
 ]
+
+
+class EpochLatencyCycle:
+    """Per-epoch latency matrices as a cyclic view over a trace.
+
+    The replication engine's epoch ``e`` always uses ``trace[e % len(trace)]``,
+    so a run's per-epoch latency "stack" is fully determined by the trace
+    plus the horizon — materializing ``[trace[e % p] for e in range(E)]``
+    (E full matrices) is pure duplication.  This sequence indexes the trace
+    lazily instead; ``len()`` is the horizon, ``[k]`` the epoch's matrix.
+    Consumers that index with ``lats[min(e, len(lats) - 1)]`` (the event
+    engine, the serve plane) see exactly the matrices the materialized
+    list held.
+    """
+
+    def __init__(self, trace: Sequence[np.ndarray], n_epochs: int):
+        self._stack = [np.asarray(l, dtype=float) for l in trace]
+        if not self._stack:
+            raise ValueError("EpochLatencyCycle requires a non-empty trace")
+        self._n = int(n_epochs)
+
+    def __len__(self) -> int:
+        return self._n
+
+    def __getitem__(self, k: int) -> np.ndarray:
+        k = int(k)
+        if k < 0 or k >= self._n:
+            raise IndexError(f"epoch {k} out of range [0, {self._n})")
+        return self._stack[k % len(self._stack)]
+
+
+@dataclasses.dataclass
+class NicState:
+    """Per-directed-NIC admission floors carried across appended segments.
+
+    ``clear_out[i]`` / ``clear_in[i]`` is the last drain time of any
+    byte-moving hop on node ``i``'s out-/in-NIC so far.  Under bandwidth
+    admission every hop of a later segment has a strictly higher rank than
+    everything already streamed, so it may not occupy either of its NICs
+    before these floors — exactly when the full re-simulation's ``min_out``
+    / ``min_in`` would have advanced past the earlier epochs' ranks.
+    """
+
+    clear_out: np.ndarray
+    clear_in: np.ndarray
+
+    @classmethod
+    def zeros(cls, n: int) -> "NicState":
+        return cls(np.zeros(n), np.zeros(n))
 
 
 @dataclasses.dataclass
@@ -111,6 +173,75 @@ class RoundResult:
         """Alias for the makespan — under the event engine this is the DAG
         critical path, under ``barrier`` the phase-sum."""
         return self.makespan_ms
+
+
+def epoch_commit_row(
+    transfers: Sequence[Transfer],
+    finish_ms: np.ndarray,
+    n: int,
+) -> np.ndarray:
+    """One epoch's *raw* per-node commit row: per node, the max delivery
+    over the transfers it owns (``src`` for local compute stages, ``dst``
+    for wire hops; cadence ``clock`` stages are unowned).  ``-inf`` marks a
+    node silent in the epoch — callers fold rows with a cumulative max and
+    map residual ``-inf`` to 0 (see :func:`node_commit_ms`).
+    """
+    row = np.full(n, -np.inf)
+    for i, t in enumerate(transfers):
+        if t.tag == "clock":
+            continue  # cadence stage: not owned by a real node
+        node = t.src if t.src == t.dst else t.dst
+        f = float(finish_ms[i])
+        if f > row[node]:
+            row[node] = f
+    return row
+
+
+def node_commit_ms(
+    schedule: TransmissionSchedule,
+    result: RoundResult,
+    n: int,
+    n_epochs: int | None = None,
+    *,
+    start_epoch: int = 0,
+    base_row: np.ndarray | None = None,
+) -> np.ndarray:
+    """Per-node, per-epoch commit times of a simulated (stitched) schedule.
+
+    ``out[k, i]`` is the time node ``i`` commits epoch ``k``: the delivery of
+    every epoch-``k`` transfer *into* ``i`` (the same dependency set
+    :func:`~repro_torch.core.schedule.stitch_schedules` gates node ``i``'s
+    epoch-``k+1`` sends on) joined with ``i``'s own epoch-``k`` local
+    execution stage.  Nodes that neither receive nor execute in an epoch
+    inherit their previous epoch's commit time (their view had nothing new
+    to wait for).  This is the measured staleness signal the
+    ``staleness_feedback`` OCC loop consumes: node ``i``'s snapshot view
+    may advance to epoch ``k`` only at ``out[k, i]``.
+
+    The windowed form computes only rows ``[start_epoch, n_epochs)``:
+    ``base_row`` must then be the cumulative commit row of epoch
+    ``start_epoch - 1`` (it seeds the running max, so the window is exactly
+    the corresponding slice of the full matrix).  Omitting ``base_row``
+    with ``start_epoch > 0`` drops the earlier epochs' history and is only
+    meaningful when no node was silent across the whole window.
+    """
+    if n_epochs is None:
+        n_epochs = max((t.epoch for t in schedule.transfers), default=-1) + 1
+    rows = max(n_epochs - start_epoch, 0)
+    out = np.full((rows, n), -np.inf)
+    for idx, t in enumerate(schedule.transfers):
+        if t.tag == "clock" or t.epoch < start_epoch or t.epoch >= n_epochs:
+            continue  # cadence stage / outside the requested window
+        node = t.src if t.src == t.dst else t.dst
+        f = float(result.finish_ms[idx])
+        if f > out[t.epoch - start_epoch, node]:
+            out[t.epoch - start_epoch, node] = f
+    if base_row is not None and rows:
+        np.maximum(out[0], np.asarray(base_row, dtype=float), out=out[0])
+    # a node silent in epoch k committed it the moment it committed k-1
+    out = np.maximum.accumulate(out, axis=0)
+    out[~np.isfinite(out)] = 0.0
+    return out
 
 
 class WANSimulator:
@@ -159,8 +290,8 @@ class WANSimulator:
 
     # -- single-hop cost -----------------------------------------------------
 
-    def _prop_ms(self, s: int, d: int) -> float:
-        prop = self.lat[s, d]
+    def _prop_ms(self, s: int, d: int, lat: np.ndarray | None = None) -> float:
+        prop = (self.lat if lat is None else lat)[s, d]
         p = float(self.loss[s, d])
         if p > 0.0:
             if self.stochastic_loss:
@@ -225,11 +356,19 @@ class WANSimulator:
     # -- full round ----------------------------------------------------------
 
     def run(self, schedule: TransmissionSchedule,
-            barrier: bool | None = None) -> RoundResult:
-        """Execute the schedule."""
+            barrier: bool | None = None,
+            lats: Sequence[np.ndarray] | None = None) -> RoundResult:
+        """Execute the schedule.  ``lats`` (a per-epoch latency-matrix list
+        for stitched multi-epoch schedules; each transfer's propagation is
+        taken from ``lats[transfer.epoch]``) is event-engine only."""
         if barrier if barrier is not None else self.barrier:
+            if lats is not None:
+                raise ValueError(
+                    "per-epoch latency stacks require the event engine: "
+                    "cross-epoch streaming has no barrier-phase semantics"
+                )
             return self._run_barrier(schedule)
-        return self._run_event(schedule)
+        return self._run_event(schedule, lats=lats)
 
     # -- barrier engine (pre-DAG phase-sum semantics) --------------------------
 
@@ -328,8 +467,24 @@ class WANSimulator:
         transfers: Sequence[Transfer],
         prop_fn,
         rank: np.ndarray | None,
+        *,
+        deps: Sequence[tuple[int, ...]] | None = None,
+        ext_ready: Sequence[float] | None = None,
+        nic: NicState | None = None,
+        tid_base: int = 0,
     ):
         """Lazy per-flow event simulation of one transfer list.
+
+        ``deps`` (default: each transfer's own ``deps``) must be local
+        indices into ``transfers``; dependencies on transfers simulated
+        earlier (a previous segment) are folded into ``ext_ready[i]`` — the
+        earliest time transfer ``i``'s external dependencies allow it to
+        become ready (its ``compute_ms`` is added on top, exactly as a live
+        dependency's delivery would be).  ``nic`` carries the per-directed-
+        NIC clear floors across segments and is updated in place.
+        ``tid_base`` offsets the event keys so a segment's events tie-break
+        identically to the same transfers inside a full stitched run —
+        equal-time event order is part of the byte-identity contract.
 
         A flow's floating-point state (remaining bytes, current rate,
         last-materialization time) is touched only by events on its own two
@@ -337,7 +492,8 @@ class WANSimulator:
         per-flow token.  Returns ``(start, finish, pred)``.
         """
         m = len(transfers)
-        deps = [t.deps for t in transfers]
+        if deps is None:
+            deps = [t.deps for t in transfers]
         hops = [  # per transfer: the 1 or 2 (src, dst) wire hops
             [(t.src, t.dst)] if t.via < 0 else [(t.src, t.via), (t.via, t.dst)]
             for t in transfers
@@ -353,8 +509,8 @@ class WANSimulator:
         # *undrained* lower-rank hop shares its src out-NIC or dst in-NIC —
         # arrival order is irrelevant, so per NIC the live flows always share
         # one rank and never exceed that phase's static degree (the invariant
-        # behind the event <= barrier theorem).  Ranks are rebased by their
-        # minimum, so the pend table spans only the ranks present.
+        # behind the event <= barrier theorem).  Ranks are rebased by the
+        # segment minimum so an appended epoch's pend table stays O(segment).
         rankb: list[int] | None = None
         if rank is not None:
             rmin = int(rank.min()) if m else 0
@@ -404,15 +560,15 @@ class WANSimulator:
         in_flows: list[dict[int, None]] = [{} for _ in range(self.n)]
 
         READY, DELIVER, DRAIN = 0, 1, 2
-        # event keys order by (time, kind, tid, aux): equal-time event order
-        # is part of the byte-identity contract; `serial` only breaks exact
-        # duplicates
-        events: list[tuple[float, int, int, int, int]] = []
+        # event keys order by (time, kind, global tid, aux): canonical across
+        # full and segment runs — `serial` only breaks exact duplicates
+        events: list[tuple[float, int, int, int, int, int]] = []
         serial = 0
 
         def push(time: float, kind: int, tid: int, aux: int):
             nonlocal serial
-            heapq.heappush(events, (time, kind, tid, aux, serial))
+            heapq.heappush(events, (time, kind, tid_base + tid, aux, serial,
+                                    tid))
             serial += 1
 
         def retune(s: int, d: int, now: float):
@@ -441,6 +597,13 @@ class WANSimulator:
                     start[tid] = now
                 push(now + prop_fn(tid, s, d), DELIVER, tid, hop)
                 return
+            if nic is not None:
+                floor = max(float(nic.clear_out[s]), float(nic.clear_in[d]))
+                if now < floor:
+                    # an earlier segment still occupies a NIC: retry exactly
+                    # when the full run's admission would have cleared it
+                    push(floor, READY, tid, hop)
+                    return
             if rankb is not None and (
                 min_out[s] < rankb[tid] or min_in[d] < rankb[tid]
             ):
@@ -460,10 +623,11 @@ class WANSimulator:
 
         for i in range(m):
             if indeg[i] == 0:
-                push(transfers[i].compute_ms, READY, i, 0)
+                rt = 0.0 if ext_ready is None else float(ext_ready[i])
+                push(rt + transfers[i].compute_ms, READY, i, 0)
 
         while events:
-            now, kind, tid, aux, _serial = heapq.heappop(events)
+            now, kind, _gid, aux, _serial, tid = heapq.heappop(events)
             if kind == READY:
                 begin_hop(now, tid, aux)
             elif kind == DRAIN:
@@ -476,6 +640,9 @@ class WANSimulator:
                 in_cnt[d] -= 1
                 del out_flows[s][tid]
                 del in_flows[d][tid]
+                if nic is not None:
+                    nic.clear_out[s] = now
+                    nic.clear_in[d] = now
                 push(now + prop_fn(tid, s, d), DELIVER, tid, hop)
                 if rankb is not None:
                     r = rankb[tid]
@@ -500,7 +667,10 @@ class WANSimulator:
                         pred[c] = tid
                     indeg[c] -= 1
                     if indeg[c] == 0:
-                        push(now + transfers[c].compute_ms, READY, c, 0)
+                        rt = now if ext_ready is None else max(
+                            now, float(ext_ready[c])
+                        )
+                        push(rt + transfers[c].compute_ms, READY, c, 0)
 
         if parked:  # unreachable: ranks strictly increase along deps
             raise RuntimeError(
@@ -508,7 +678,55 @@ class WANSimulator:
             )
         return start, finish, pred
 
-    def _run_event(self, schedule: TransmissionSchedule) -> RoundResult:
+    def simulate_segment(
+        self,
+        transfers: Sequence[Transfer],
+        *,
+        rank: np.ndarray,
+        deps: Sequence[tuple[int, ...]],
+        ext_ready: Sequence[float],
+        nic: NicState,
+        lat: np.ndarray | None = None,
+        tid_base: int = 0,
+    ):
+        """Simulate one appended segment of a stitched stream against the
+        carried cross-segment state (:class:`NicState` floors, folded
+        external-dependency ready times) — the incremental half of the
+        byte-identity contract (see :class:`repro_torch.core.stream.
+        StreamingTimeline`).  ``lat`` is this segment's latency matrix
+        (each appended epoch sees its own trace step, like ``run(...,
+        lats=[...])``).  Returns ``(start, finish, pred)`` and updates
+        ``nic`` in place."""
+        if self.barrier:
+            raise ValueError(
+                "segment simulation requires the event engine: barrier "
+                "phases have no cross-segment semantics"
+            )
+        if not self.admission:
+            raise ValueError(
+                "segment simulation is only sound under bandwidth admission "
+                "(admission=False lets later segments slow earlier flows)"
+            )
+        if self.stochastic_loss:
+            raise ValueError(
+                "segment simulation rejects stochastic_loss=True: the "
+                "retransmission draws happen in event order, which differs "
+                "between incremental and full runs"
+            )
+        lat_m = self.lat if lat is None else np.asarray(lat, dtype=float)
+
+        def prop_fn(tid: int, s: int, d: int) -> float:
+            if s == d:
+                return 0.0  # local compute stage
+            return self._prop_ms(s, d, lat=lat_m)
+
+        return self._simulate_dag(
+            transfers, prop_fn, rank, deps=deps, ext_ready=ext_ready,
+            nic=nic, tid_base=tid_base,
+        )
+
+    def _run_event(self, schedule: TransmissionSchedule,
+                   lats: Sequence[np.ndarray] | None = None) -> RoundResult:
         transfers = schedule.transfers
         m = len(transfers)
         bytes_out, bytes_in, msg, link = self._account(schedule)
@@ -519,10 +737,24 @@ class WANSimulator:
                 n_transfers=0, start_ms=np.zeros(0), finish_ms=np.zeros(0),
             )
 
+        stack: Sequence[np.ndarray] | None = None
+        if lats is not None:
+            # an EpochLatencyCycle already indexes lazily — wrapping it in a
+            # list would materialize the E duplicated matrices it exists to
+            # avoid
+            if isinstance(lats, EpochLatencyCycle):
+                stack = lats
+            else:
+                stack = [np.asarray(l, dtype=float) for l in lats]
+
         def prop_ms(tid: int, s: int, d: int) -> float:
             if s == d:
                 return 0.0  # local compute stage
-            return self._prop_ms(s, d)
+            if stack is None:
+                return self._prop_ms(s, d)
+            return self._prop_ms(
+                s, d, lat=stack[min(transfers[tid].epoch, len(stack) - 1)]
+            )
 
         rank = self._admission_ranks(schedule) if self.admission else None
         start, finish, pred = self._simulate_dag(transfers, prop_ms, rank)

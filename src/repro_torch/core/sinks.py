@@ -1,12 +1,20 @@
-"""Run-level stats sink (the port's own copy of ``repro.core.sinks``).
+"""Epoch-sink pipeline (the port's own copy of ``repro.core.sinks``).
 
-The engine pushes each epoch's ``EpochStats`` to a :class:`RunAggregator`
-the moment the epoch's numbers are final: running totals and moments
+The engine pushes each epoch's ``EpochStats`` to its sinks the moment the
+epoch's numbers are final, with an :class:`EpochContext` on the streaming
+engine (the epoch's cumulative per-node commit row and its latency
+matrix): under bandwidth admission a later epoch's flows never share a NIC
+in time with an earlier one's, so the moment
+``StreamingTimeline.append_epoch`` returns, the epoch's measured times are
+what the full re-simulation would report, and nothing about the epoch
+needs to be retained afterwards.
+
+:class:`RunAggregator` keeps running totals and moments
 (:class:`RunSummary`) plus the retained epochs, all of them
 (``EngineConfig(keep_epochs=True)``, the default) or a bounded trailing
 window (``keep_epochs=False, stats_window=...``).  The reference's other
-sinks (the streaming engine's per-epoch context, the serving plane's
-``ServingSink``) come with those planes (ROADMAP §1, W1 and W3).
+sink, the serving plane's ``ServingSink``, comes with that plane (ROADMAP
+§1, W3).
 """
 
 from __future__ import annotations
@@ -14,14 +22,44 @@ from __future__ import annotations
 import collections
 import dataclasses
 import math
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Protocol
+
+import numpy as np
 
 from .whitedata import FilterStats
 
 if TYPE_CHECKING:  # pragma: no cover - typing only (avoids an import cycle)
     from .replication import EpochStats
 
-__all__ = ["RunAggregator", "RunSummary"]
+__all__ = ["EpochContext", "EpochSink", "RunAggregator", "RunSummary"]
+
+
+@dataclasses.dataclass(frozen=True)
+class EpochContext:
+    """Streaming-only side channel handed to sinks beside the stats.
+
+    ``commit_row`` is the epoch's cumulative per-node commit row
+    (``node_commit_ms`` semantics — final by the admission theorem) and
+    ``lat`` the epoch's trace latency matrix (``trace[e % len(trace)]``;
+    a reference, never a copy).  Non-streaming engines pass ``None``.
+    """
+
+    epoch: int
+    commit_row: np.ndarray | None = None
+    lat: np.ndarray | None = None
+
+
+class EpochSink(Protocol):
+    """A push-based consumer of finalized per-epoch stats.
+
+    ``on_epoch`` is called exactly once per epoch, in epoch order, the
+    moment the epoch's numbers are final; implementations must not retain
+    unbounded per-epoch state (that is the point).
+    """
+
+    def on_epoch(
+        self, stats: "EpochStats", ctx: EpochContext | None = None
+    ) -> None: ...
 
 
 @dataclasses.dataclass
@@ -105,7 +143,9 @@ class RunAggregator:
         else:
             self._epochs = collections.deque(maxlen=max(self.window, 0))
 
-    def on_epoch(self, stats: "EpochStats") -> None:
+    def on_epoch(
+        self, stats: "EpochStats", ctx: EpochContext | None = None
+    ) -> None:
         s = self.summary
         s.n_epochs += 1
         s.n_txns += stats.n_txns

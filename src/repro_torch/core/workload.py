@@ -11,7 +11,10 @@ gives the same transactions), then makes the epoch's :class:`EpochBatch`
 on the store's device in one pass that gathers the read versions (and
 YCSB's rewritten values) from the table.  The draws do not depend on the
 store (the reference draws its rewrite coin unconditionally), which is
-what lets the host draw first.  :class:`DiurnalLoad` scales any
+what lets the host draw first.  ``to_batch`` takes one table (the global
+store) or one table a node (the streaming engine's snapshot views under
+``staleness_feedback``): each node's read versions, and YCSB's rewritten
+values, come from its own table.  :class:`DiurnalLoad` scales any
 generator's transactions an epoch.
 
 ``load`` fills a generator's store before epoch 0 (YCSB's load phase, a
@@ -41,6 +44,27 @@ LOAD_CHUNK_ROWS = 1 << 20
 def _check_layout(table: CRDTTable, layout: dict) -> None:
     if table.layout() != layout:
         raise ValueError(f"a store of layout {table.layout()} for a workload of {layout}")
+
+
+def _node_tables(snapshot, layout: dict) -> list[CRDTTable]:
+    """The tables the nodes execute against: ``snapshot`` for every node
+    (one globally merged store), or ``snapshot[node]`` (a view a node; the
+    reference's ``_node_snapshot``)."""
+    tables = [snapshot] if isinstance(snapshot, CRDTTable) else list(snapshot)
+    for table in tables:
+        _check_layout(table, layout)
+    return tables
+
+
+def _by_node(tables: list[CRDTTable], node: torch.Tensor, gather) -> torch.Tensor:
+    """``gather(table)`` with each row taken from the table of the row's
+    node (``node``: each row's node), selected on the device without a
+    sync."""
+    out = gather(tables[0])
+    for i in range(1, len(tables)):
+        mine = (node == i).view(-1, *(1,) * (out.dim() - 1))
+        out = torch.where(mine, gather(tables[i]), out)
+    return out
 
 
 def _load(table: CRDTTable, layout: dict, values) -> None:
@@ -251,30 +275,35 @@ class YCSBGenerator:
                           reads.astype(np.int64).reshape(-1, 2),
                           writes.astype(np.int64).reshape(-1, 5))
 
-    def to_batch(self, draws: EpochDraws, snapshot: CRDTTable) -> EpochBatch:
+    def to_batch(self, draws: EpochDraws, snapshot) -> EpochBatch:
         """The epoch's batch on the store's device: the draws copied over,
-        the read versions gathered from ``snapshot``, each write's value the
-        seed tiled to the value width, or the snapshot's current value where
-        the rewrite coin fell and the key is present."""
-        _check_layout(snapshot, self._layout())
-        dev = snapshot.device
+        the read versions gathered from ``snapshot`` (one table, or one a
+        node: each node's from its own), each write's value the seed tiled
+        to the value width, or the node's current value where the rewrite
+        coin fell and the key is present there."""
+        tables = _node_tables(snapshot, self._layout())
+        first = tables[0]
+        dev = first.device
         t = torch.from_numpy(draws.txns).to(dev)
         r = torch.from_numpy(draws.reads).to(dev)
         w = torch.from_numpy(draws.writes).to(dev)
-        row = w[:, 1]
-        fresh = self._fresh(w[:, 2:4].to(torch.int32), snapshot.words)
-        use_cur = (w[:, 4] != 0) & snapshot.present[row]
-        val = torch.where(use_cur[:, None], snapshot.values[row], fresh)
-        length = torch.where(use_cur, snapshot.lengths[row], self.value_bytes)
+        node = t[:, 1]
+        row, rrow, wnode = w[:, 1], r[:, 1], node[w[:, 0]]
+        fresh = self._fresh(w[:, 2:4].to(torch.int32), first.words)
+        use_cur = (w[:, 4] != 0) & _by_node(tables, wnode, lambda v: v.present[row])
+        val = torch.where(use_cur[:, None], _by_node(tables, wnode, lambda v: v.values[row]),
+                          fresh)
+        length = torch.where(use_cur, _by_node(tables, wnode, lambda v: v.lengths[row]),
+                             self.value_bytes)
         return EpochBatch(
             t[:, 0], t[:, 1], t[:, 2], t[:, 3],
-            r[:, 0], r[:, 1], snapshot.versions[r[:, 1]],
-            w[:, 0], row, val.contiguous(), snapshot.key_lengths(row), length)
+            r[:, 0], rrow, _by_node(tables, node[r[:, 0]], lambda v: v.versions[rrow]),
+            w[:, 0], row, val.contiguous(), first.key_lengths(row), length)
 
-    def epoch_txns(self, epoch: int, txns_per_node: int, snapshot: CRDTTable) -> EpochBatch:
+    def epoch_txns(self, epoch: int, txns_per_node: int, snapshot) -> EpochBatch:
         """One epoch's transactions for every node, as a batch on the
         snapshot's device (the reference's ``epoch_txns``, whose reads are
-        versioned against ``snapshot``)."""
+        versioned against ``snapshot``: one table, or one a node)."""
         return self.to_batch(self.draw(epoch, txns_per_node), snapshot)
 
 
@@ -443,24 +472,27 @@ class TPCCGenerator:
                          np.array(reads, dtype=np.int64).reshape(-1, 2),
                          writes.astype(np.int64).reshape(-1, 3), words)
 
-    def to_batch(self, draws: TPCCDraws, snapshot: CRDTTable) -> EpochBatch:
+    def to_batch(self, draws: TPCCDraws, snapshot) -> EpochBatch:
         """The epoch's batch on the store's device: the draws copied over,
-        the read versions gathered from ``snapshot``."""
-        _check_layout(snapshot, self._layout())
-        dev = snapshot.device
+        the read versions gathered from ``snapshot`` (one table, or one a
+        node: each node's from its own)."""
+        tables = _node_tables(snapshot, self._layout())
+        first = tables[0]
+        dev = first.device
         t = torch.from_numpy(draws.txns).to(dev)
         r = torch.from_numpy(draws.reads).to(dev)
         w = torch.from_numpy(draws.writes).to(dev)
-        row = w[:, 1] + snapshot.w_base
+        row, rrow = w[:, 1] + first.w_base, r[:, 1] + first.w_base
         return EpochBatch(
             t[:, 0], t[:, 1], t[:, 2], t[:, 3],
-            r[:, 0], r[:, 1] + snapshot.w_base, snapshot.versions[r[:, 1] + snapshot.w_base],
-            w[:, 0], row, torch.from_numpy(draws.values).to(dev), snapshot.key_lengths(row),
+            r[:, 0], rrow, _by_node(tables, t[r[:, 0], 1], lambda v: v.versions[rrow]),
+            w[:, 0], row, torch.from_numpy(draws.values).to(dev), first.key_lengths(row),
             w[:, 2])
 
-    def epoch_txns(self, epoch: int, txns_per_node: int, snapshot: CRDTTable) -> EpochBatch:
+    def epoch_txns(self, epoch: int, txns_per_node: int, snapshot) -> EpochBatch:
         """One epoch's transactions for every node, as a batch on the
-        snapshot's device (reads versioned against ``snapshot``)."""
+        snapshot's device (reads versioned against ``snapshot``: one table,
+        or one a node)."""
         return self.to_batch(self.draw(epoch, txns_per_node), snapshot)
 
 
@@ -499,8 +531,8 @@ class DiurnalLoad:
     def draw(self, epoch: int, txns_per_node: int):
         return self.inner.draw(epoch, self.scaled(epoch, txns_per_node))
 
-    def to_batch(self, draws, snapshot: CRDTTable) -> EpochBatch:
+    def to_batch(self, draws, snapshot) -> EpochBatch:
         return self.inner.to_batch(draws, snapshot)
 
-    def epoch_txns(self, epoch: int, txns_per_node: int, snapshot: CRDTTable) -> EpochBatch:
+    def epoch_txns(self, epoch: int, txns_per_node: int, snapshot) -> EpochBatch:
         return self.to_batch(self.draw(epoch, txns_per_node), snapshot)

@@ -206,15 +206,17 @@ def test_best_plan_and_replanner_over_a_jittered_trace(method):
 def test_best_plan_refuses_the_wan_simulator_ranking():
     """The ranking by a simulated round makespan (``payload_bytes``) runs
     the port's WAN simulator: the reference's plans under both engines,
-    with and without a bandwidth limit; the stitched-epochs ranking of the
-    streaming engine is no option of the port's."""
+    with and without a bandwidth limit, and by two stitched epochs (the
+    streaming engine's ranking); that ranking refuses the barrier engine
+    as the reference's does."""
     for kw in (dict(), dict(barrier=True), dict(bandwidth_mbps=50.0),
-               dict(barrier=True, bandwidth_mbps=50.0, filter_keep=0.5)):
+               dict(barrier=True, bandwidth_mbps=50.0, filter_keep=0.5),
+               dict(streaming=True), dict(streaming=True, bandwidth_mbps=50.0)):
         want = rplan.best_plan(SQUARE, method="kcenter", payload_bytes=1e6, **kw)
         got = pplan.best_plan(SQUARE, method="kcenter", payload_bytes=1e6, **kw)
         assert plan_fields(got) == plan_fields(want)
-    with pytest.raises(TypeError, match="streaming"):
-        pplan.best_plan(SQUARE, payload_bytes=1e6, streaming=True)
+    with pytest.raises(ValueError, match="event engine"):
+        pplan.best_plan(SQUARE, payload_bytes=1e6, streaming=True, barrier=True)
 
 
 # ---------------------------------------------------------------------------

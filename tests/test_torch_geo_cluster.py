@@ -6,7 +6,8 @@ exact) for ``flat``, ``hier`` and ``geococo`` under the event and barrier
 engines, with ``kcenter`` and ``modeled_cpu``; a WAN mask and a bounded
 stats window; the aggregator failover at mid-run (the second run restarts
 its epochs, so the stale rule fires); the config's rule table; each
-refused flag raising; the device default; the example at a small size.
+refused flag raising; the device default; the example at a small size;
+reference fault 15 (views that start empty on a loaded store) not copied.
 The reference's engine is numpy only: neither side imports JAX here.
 """
 
@@ -147,8 +148,6 @@ def test_config_rules_and_presets_as_the_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(streaming=True), "W1"),
-    (dict(streaming=True, staleness_feedback=True), "W2"),
     (dict(streaming=True, serve=object()), "W3"),
     (dict(compression=True), "W4"),
     (dict(sync_strategy="geococo-zlib"), "W4"),
@@ -157,6 +156,26 @@ def test_config_rules_and_presets_as_the_reference():
 def test_refused_flags_name_their_roadmap_item(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1, {item}"):
         EngineConfig(n_nodes=3, **kw)
+
+
+def test_views_start_as_copies_of_a_loaded_store():
+    """Reference fault 15: the reference starts each node's view empty even
+    on a store loaded before ``run()``, so every read of a loaded key is
+    stale in its first epochs.  The port's views start as copies of the
+    store: its first epoch reads fresh state and aborts no read, while the
+    same transactions (equal write-write aborts) read-abort in the
+    reference."""
+    cfg = dict(streaming=True, staleness_feedback=True, epoch_ms=2.0)
+    (re, rg, rt), (pe, pg, pt) = engines("geococo", False, epochs=4, **cfg)
+    pe.store = pg.table("cpu")
+    pg.load(pe.store, seed=11)
+    re.store = ref.DeltaCRDTStore()
+    re.store.apply_many([ref.Update(k, v, ref.Version(ver.epoch, ver.seq, ver.node))
+                         for k, (v, ver) in pe.store.full_state().items()])
+    want, got = re.run(rg, rt, txns_per_node=8), pe.run(pg, pt, txns_per_node=8)
+    assert got.epochs[0].read_aborts == 0 < want.epochs[0].read_aborts
+    assert [e.ww_aborts for e in got.epochs] == [e.ww_aborts for e in want.epochs]
+    assert got.read_aborts < want.read_aborts
 
 
 def test_refused_parts_outside_the_config():

@@ -3,8 +3,10 @@ epochs through ``GeoCluster`` on ``cuda`` and on the CPU give every
 ``EpochStats`` field, the message matrix and both digests equal, for
 ``flat``, ``hier`` and ``geococo`` under both engines (and TPC-C epochs from
 a loaded store under ``flat`` and ``geococo``), with every commit
-joined through the CUDA join kernel (``crdt_merge_rows``); the store's join, the validation and
-the filter alone on random batches, card against CPU.
+joined through the CUDA join kernel (``crdt_merge_rows``); a streaming run
+with per-node views (``staleness_feedback``, both stream modes), each view
+joining its epochs through the same kernel; the store's join, the
+validation and the filter alone on random batches, card against CPU.
 
 The merge kernel has no CPU or interpret mode, so these tests skip without
 a card; each decides that when it runs.  This file imports no JAX, so it
@@ -121,3 +123,41 @@ def test_tpcc_from_a_loaded_store_on_the_card_equals_its_cpu_run(card, strategy)
     got, want = out[str(card)], out["cpu"]
     assert got[:5] == want[:5]
     assert got[5] == 4
+
+
+def feedback_run(device, mode: str):
+    """A small streaming run with per-node views (``staleness_feedback``)
+    from a loaded YCSB store, on two clusters joined at 120 Mbps, at a
+    cadence that lets the views lag."""
+    from repro_torch.core.latency import GeoClusterSpec, geo_clustered_matrix
+
+    lat, regions = geo_clustered_matrix(GeoClusterSpec(n_nodes=5, n_clusters=2),
+                                        np.random.default_rng(1))
+    wan = np.asarray(regions)[:, None] != np.asarray(regions)[None, :]
+    bw = np.where(wan, 120.0, 10_000.0)
+    np.fill_diagonal(bw, np.inf)
+    eng = GeoCluster(EngineConfig(n_nodes=5, sync_strategy="geococo", planner="kcenter",
+                                  streaming=True, staleness_feedback=True, epoch_ms=40.0,
+                                  modeled_cpu=True, stream_mode=mode),
+                     bandwidth_mbps=bw, wan_mask=wan, seed=7, device=device)
+    gen = YCSBGenerator(YCSBConfig(**YCSB), 5, seed=5, node_region=regions)
+    eng.store = gen.table(device)
+    gen.load(eng.store, seed=5)
+    rs = eng.run(gen, jitter_trace(lat, 6, np.random.default_rng(2)), txns_per_node=200)
+    return eng, rs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["incremental", "resim"])
+def test_feedback_run_on_the_card_equals_its_cpu_run(card, mode):
+    before = merge_ops.crdt_merge_rows.launches
+    eng, got = feedback_run(card, mode)
+    launches = merge_ops.crdt_merge_rows.launches - before
+    cpu, want = feedback_run("cpu", mode)
+    for a, b in zip(want.epochs, got.epochs):
+        assert dataclasses.asdict(b) == dataclasses.asdict(a), a.epoch
+    assert (got.state_digest, got.value_digest) == (want.state_digest, want.value_digest)
+    assert np.array_equal(got.msg_matrix, want.msg_matrix)
+    assert eng.view_merges == cpu.view_merges > 0 and got.read_aborts > 0
+    # one join a commit, one a view and epoch merged
+    assert launches == eng.store.merges + eng.view_merges == len(got.epochs) + eng.view_merges
