@@ -280,7 +280,7 @@ Phases, each of which fails the run (nonzero exit, no result line):
    CPU as in 32 (a), flat and geococo one state; (b) 100 warehouses x
    100,000 items (STOCK's rows, TPC-C clause 1.3.1) of 120 B loaded before
    epoch 0, TPCC-A, remote 0.10, phase 32's testbed at 120 Mbps, 1000
-   transactions a node an epoch, kcenter, 10 epochs of flat, then of
+   transactions a node an epoch, kcenter, 5 epochs of flat, then of
    geococo, gated and printed as 32 (b), (c), with tpmTotal and the
    NewOrder count; (d) (b)'s settings from an empty store with the
    filter's CPU modeled, flat then geococo, one state: printed in the form
@@ -299,19 +299,38 @@ Phases, each of which fails the run (nonzero exit, no result line):
    testbed, geococo, 20 epochs at 320 ms, streaming without feedback (its
    digests, commits and WAN bytes those of phase 32's geococo run) and with
    it (five views on the card; its write-write aborts the first run's),
-   then phase 33 (b)'s loaded TPC-C database with feedback, 10 epochs;
+   then phase 33 (b)'s loaded TPC-C database with feedback, 5 epochs;
    (c) ``crdt_merge_rows`` launched once a commit and once a view and epoch
    merged, every other kernel 0.  Printed: each epoch's wall split with the
    views' part, the stream's wall and pipeline overlap against the
    formula's, read aborts and view lags, peak memory against the tables'
    reckoning, the device busy share over 5 epochs of a third feedback run
    (its views made before the window), each view's join against the bound
-   of the rows it took, and the host's side of those joins, traced.
+   of the rows it took, and the host's side of those joins, traced;
+   (c-ii) of phase 35: the feedback runs serve a million clients a node over
+   their views (``ServeConfig``), their serving summary printed;
+35. WAN compression, the serving plane and the Raft plane: (a) Fig 16's
+   quick regime (``benchmarks/bench_compression.py``: 8 nodes, 40 Mbps WAN,
+   YCSB, modeled CPU), baseline, zlib, geococo and geococo+zlib on the card
+   equal to the same runs on the CPU as in 32 (a), one state, the
+   normalized makespans the reference's; (b) ``geococo-zlib`` on phase 32's
+   loaded store and settings, filter and compression CPU measured: its
+   digests phase 32's geococo run's; printed the WAN bytes against
+   geococo's, each epoch's wall with compression apart (the records'
+   streams built on the card, their copies to the host, zlib there), zlib's
+   rate and ratio; (c-i) ``benchmarks/bench_serving.py``'s quick regime
+   (TPCC-A streamed at 10 ms, 24 epochs, a million clients a node, redirect,
+   a 200-key cache) at bounds 0, 50 ms and 1e9 ms and flat at 50 ms: the
+   card's ``ServeStats`` equal to the CPU's, serving on = off in digests,
+   WAN bytes and times, the reference's served reads/s; (d) Fig 11b's
+   ``RaftCluster`` (host numpy) without and with bandwidth, the reference's
+   gains; ``crdt_merge_rows`` launched once a commit in (a)-(c), every
+   other kernel 0.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13, 15-30 and 32-34 each on an empty card after the
+released, and phases 11, 13, 15-30 and 32-35 each on an empty card after the
 phase before; phase 31 allocates nothing on the card.  Each phase prints its
 wall time.
 
@@ -619,9 +638,11 @@ LOAD_SEED = 7
 # testbed at 120 Mbps, TPCC_TXNS transactions a node an epoch, kcenter,
 # TPCC_EPOCHS epochs of flat, then of geococo; (d) the same from an empty
 # store with the filter's CPU modeled, as tests/tpcc_full_reference.py runs
-# the reference
+# the reference.  TPCC_EPOCHS cut from 10 to 5 for the whole script's time
+# (1140 s with phase 35 on a slow H100 host, whose SHA-256 ran at 2.08 GB/s
+# in two threads): an epoch at this size is ~0.7 s of host draws
 TPCC_WAREHOUSES, TPCC_ITEMS, TPCC_VALUE_BYTES = 100, 100_000, 120
-TPCC_TXNS, TPCC_EPOCHS = 1000, 10
+TPCC_TXNS, TPCC_EPOCHS = 1000, 5
 TPCC_CHECK_TXNS, TPCC_CHECK_EPOCHS = 40, 10
 TPCC_BENCH_REGIONS = (0, 0, 0, 0, 1)
 TPCC_MIXES_ORDER = ("TPCC-A", "TPCC-B", "TPCC-C", "TPCC-D")
@@ -639,6 +660,38 @@ TPCC_MIXES_ORDER = ("TPCC-A", "TPCC-B", "TPCC-C", "TPCC-D")
 # YCSB feedback run
 STREAM_CURVE_MS = (10.0, 80.0, 320.0)
 STREAM_EPOCH_MS, STREAM_PROFILE_EPOCHS, STREAM_PHASE_LIMIT_S = 320.0, 5, 90.0
+# phase 35: WAN compression, the serving plane and the Raft plane.  (a) Fig
+# 16's quick regime (benchmarks/bench_compression.py:16-31, its cluster from
+# benchmarks/common.py:60-65: FIG16_NODES nodes, seed FIG16_SEED,
+# FIG16_EPOCHS trace steps; 40 Mbps WAN under a 10 Gbps LAN; YCSB over
+# 20,000 keys, theta 0.7, hot writes 0.35, rewrites 0.10, 100 B values;
+# FIG16_TXNS transactions a node; MILP; modeled CPU), card against CPU, and
+# the normalized makespans the reference gives on the CPU; (b) geococo-zlib
+# on phase 32's loaded store; (c-i) benchmarks/bench_serving.py's quick
+# regime (phase 33 (a)'s TPCC-A regime streamed at 10 ms, SERVE_EPOCHS epochs
+# of SERVE_TXNS transactions a node, modeled CPU, SERVE_CLIENTS clients a
+# node reading 95% of the time, redirect, a SERVE_CACHE_KEYS-key cache) at
+# the bounds of SERVE_RPS, flat against geococo at SERVE_BOUND_MS, with the
+# reference's served reads/s on the CPU (SERVE_RPS); (c-ii) phase 34 (b)'s feedback runs serve
+# SERVE_CLIENTS clients a node at SERVE_BOUND_MS over their views; (d) Fig
+# 11b (benchmarks/bench_throughput.py:102-115) on wan_cluster(RAFT_NODES,
+# RAFT_STEPS, seed=RAFT_SEED), without bandwidth as the benchmark runs it
+# and with the bandwidth matrix wan_cluster returns, with the reference's
+# gains on the CPU
+FIG16_NODES, FIG16_SEED, FIG16_EPOCHS, FIG16_TXNS = 8, 41, 20, 15
+FIG16_NORM = {"baseline": 1.0, "zlib": 0.99005, "geococo": 0.47124, "geococo+zlib": 0.46476}
+SERVE_EPOCHS, SERVE_TXNS, SERVE_CLIENTS, SERVE_CACHE_KEYS = 24, 20, 1_000_000.0, 200
+SERVE_BOUND_MS = 50.0
+SERVE_RPS = {("geococo", 0.0): 30_711, ("geococo", 50.0): 214_980,
+             ("geococo", 1e9): 737_075, ("flat", 50.0): 132_449}
+RAFT_NODES, RAFT_STEPS, RAFT_SEED = 9, 30, 11
+RAFT_PAYLOADS = {"YCSB-A": 64_000.0, "YCSB-B": 24_000.0, "YCSB-C": 12_000.0,
+                 "YCSB-D": 24_000.0}
+# the reference's gains (%, to 0.1): one figure without bandwidth (the
+# benchmark passes none), YCSB-A's and YCSB-C's with it
+RAFT_GAINS = {False: {"YCSB-A": 12.0, "YCSB-B": 12.0, "YCSB-C": 12.0, "YCSB-D": 12.0},
+              True: {"YCSB-A": 25.1, "YCSB-C": 14.8}}
+PLANES_PHASE_AIM_S = 45.0
 # phase 31: the band that the card's peak memory over a step (after a reset)
 # must hold against the dry-run's peak of live storage: the caching
 # allocator rounds each block up to 512 bytes and keeps cuBLAS' workspaces,
@@ -4325,14 +4378,16 @@ def lan_wan_bandwidth(regions, n: int, wan_mbps: float, lan_mbps: float = 10_000
 
 
 def tpcc_cluster(strategy: str, device, *, full: bool, mix: str = "TPCC-A",
-                 modeled: bool, planner: str = "milp", **engine):
+                 modeled: bool, planner: str = "milp", rounds: int = TPCC_CHECK_EPOCHS,
+                 **engine):
     """Phase 33's engine, generator and trace.  Not ``full``:
     ``benchmarks/bench_throughput.py``'s regime (``_run_tpcc``, ``:25-62``:
     the paper's testbed trace of ``benchmarks/common.py:30-55``, 10 Gbps LAN
     and 15 Mbps WAN, 100 warehouses x 50 items, remote 0.25, MILP unless
-    ``planner`` says otherwise, seed 3); ``full``: TPCC_WAREHOUSES x
-    TPCC_ITEMS on phase 32's testbed at WAN_BANDWIDTH_MBPS, kcenter.
-    ``engine``: more of the engine's settings (phase 34's streaming ones)."""
+    ``planner`` says otherwise, seed 3; a trace of ``rounds`` steps);
+    ``full``: TPCC_WAREHOUSES x TPCC_ITEMS on phase 32's testbed at
+    WAN_BANDWIDTH_MBPS, kcenter.  ``engine``: more of the engine's settings
+    (phase 34's streaming ones, phase 35's serving plane)."""
     import numpy as np
 
     from repro_torch.core.latency import jitter_trace
@@ -4356,7 +4411,7 @@ def tpcc_cluster(strategy: str, device, *, full: bool, mix: str = "TPCC-A",
                          bandwidth_mbps=lan_wan_bandwidth(TPCC_BENCH_REGIONS, n, 15.0),
                          wan_mask=wan, seed=3, device=device)
         cfg = TPCCConfig(n_warehouses=100, mix=mix, remote_prob=0.25, items_per_warehouse=50)
-        trace = jitter_trace(np.array(WAN_TESTBED), TPCC_CHECK_EPOCHS,
+        trace = jitter_trace(np.array(WAN_TESTBED), rounds,
                              np.random.default_rng(0), rel_sigma=0.04, spike_prob=0.002,
                              spike_mult=(1.3, 1.8))
     return eng, TPCCGenerator(cfg, n, seed=3), trace
@@ -4498,13 +4553,13 @@ def tpcc_summary_line(strategy: str, rs, gen) -> str:
 
 
 def host_sha_rate() -> tuple[float, float]:
-    """This host's SHA-256 rate (GB/s) over 1 GB of pinned memory: one
+    """This host's SHA-256 rate (GB/s) over 256 MiB of pinned memory: one
     thread, and two threads at once (the digests' pair)."""
     import hashlib
 
     import torch
 
-    buf = torch.randint(0, 256, (1 << 30,), dtype=torch.uint8).pin_memory().numpy()
+    buf = torch.randint(0, 256, (1 << 28,), dtype=torch.uint8).pin_memory().numpy()
     t0 = time.perf_counter()
     hashlib.sha256(buf).hexdigest()
     one = buf.size / (time.perf_counter() - t0) / 1e9
@@ -4652,7 +4707,7 @@ def run_wan(dev, counters: dict) -> dict:
     t_phase = time.perf_counter()
     memory_line("[32]", "start")
     one, two = host_sha_rate()
-    print(f"[32] this host's SHA-256 over 1 GB of pinned memory: {one:.3f} GB/s in one thread, "
+    print(f"[32] this host's SHA-256 over 256 MiB of pinned memory: {one:.3f} GB/s in one thread, "
           f"{two:.3f} GB/s in two at once")
     wan_check(dev)
     print(f"[32] YCSB store of {WAN_KEYS:,} records x {WAN_VALUE_BYTES} B on the card, every "
@@ -4854,6 +4909,8 @@ def stream_main_run(tag: str, build, epochs: int, txns: int, counters: dict) -> 
           f"{commits} commits and {views} views' joins through crdt_merge_rows, every other "
           f"kernel 0; peak {peak / 1e9:.2f} GB against {1 + n_views} tables of "
           f"{one / 1e9:.3f} GB = {(1 + n_views) * one / 1e9:.2f} GB reckoned")
+    if rs.serve is not None:
+        print(f"{tag} [35] (c-ii) serving over the views: {serve_text(rs.serve)}")
     out = {"rs": rs, "launches": counts["crdt_merge_rows"], "views": views, "peak": peak,
            "times": times}
     del eng, gen
@@ -4926,6 +4983,9 @@ def stream_profile(tag: str, build, txns: int) -> dict:
         print(f"    {k:,} rows, {taken:,} taken: {ms * 1e3:.2f} us against {bound * 1e3:.3f} us, "
               f"{bound / ms:.1%}")
     host = view_join_trace(tag, views[0], deltas)
+    # the two wrappers hold the engine (a bound method) and the views: a
+    # cycle the garbage collector would have to find before the store is freed
+    del eng._commit, eng._start_views
     del eng, gen, views, deltas
     torch.cuda.empty_cache()
     return {"busy": None if dev_ms is None else dev_ms / wall_ms, "view_kernel_ms": view_ms,
@@ -4992,9 +5052,18 @@ def run_stream(dev, counters: dict, wan: dict) -> dict:
     memory_line("[34]", "start")
     stream_check(dev)
 
-    def ycsb(feedback: bool):
+    from repro_torch.serve import ServeConfig
+
+    def serve(n_keys: int):
+        # phase 35 (c-ii): the serving plane over the views, at full size
+        return ServeConfig(clients_per_node=SERVE_CLIENTS, read_ratio=0.95,
+                           max_staleness_ms=SERVE_BOUND_MS, policy="redirect",
+                           cache_keys=SERVE_CACHE_KEYS, n_keys=n_keys)
+
+    def ycsb(feedback: bool, serving: bool = False):
         return lambda: wan_cluster("geococo", False, WAN_KEYS, dev, modeled=False, streaming=True,
-                                   staleness_feedback=feedback, epoch_ms=STREAM_EPOCH_MS)
+                                   staleness_feedback=feedback, epoch_ms=STREAM_EPOCH_MS,
+                                   serve=serve(WAN_KEYS) if serving else None)
 
     print(f"[34] (b) phase 32's YCSB store ({WAN_KEYS:,} records x {WAN_VALUE_BYTES} B, loaded) "
           f"and testbed, geococo, {WAN_EPOCHS} epochs at {STREAM_EPOCH_MS:g} ms, filter CPU "
@@ -5008,8 +5077,8 @@ def run_stream(dev, counters: dict, wan: dict) -> dict:
     print(f"[34] (b) the streamed run ends in phase 32's geococo state: digests "
           f"{geo.state_digest[:12]}..., {geo.committed:,} committed, WAN "
           f"{geo.wan_bytes / 1e6:.3f} MB")
-    on = stream_main_run("[34] (b) YCSB with five views", ycsb(True), WAN_EPOCHS, WAN_TXNS,
-                         counters)
+    on = stream_main_run("[34] (b) YCSB with five views", ycsb(True, serving=True), WAN_EPOCHS,
+                         WAN_TXNS, counters)
     if [e.ww_aborts for e in on["rs"].epochs] != [e.ww_aborts for e in off["rs"].epochs]:
         fail("[34] (b) the feedback run's write-write aborts differ from the streamed run's")
     print(f"[34] (b) with the views: the same write-write aborts, epoch for epoch "
@@ -5020,7 +5089,8 @@ def run_stream(dev, counters: dict, wan: dict) -> dict:
     tp = stream_main_run("[34] (b) TPC-C with six tables",
                          lambda: tpcc_cluster("geococo", dev, full=True, modeled=False,
                                               streaming=True, staleness_feedback=True,
-                                              epoch_ms=STREAM_EPOCH_MS),
+                                              epoch_ms=STREAM_EPOCH_MS,
+                                              serve=serve(TPCC_WAREHOUSES * TPCC_ITEMS)),
                          TPCC_EPOCHS, TPCC_TXNS, counters)
     prof = stream_profile("[34]", ycsb(True), WAN_TXNS)
     memory_line("[34]", "end")
@@ -5029,6 +5099,248 @@ def run_stream(dev, counters: dict, wan: dict) -> dict:
     runs = (off, on, tp)
     return {"launches": sum(r["launches"] for r in runs),
             "view_joins": sum(r["views"] for r in runs), "seconds": took, **prof}
+
+
+def geo_wan_cluster(n: int, rounds: int, seed: int):
+    """``benchmarks/common.py:60-65``'s ``wan_cluster`` from the port's
+    latency module: the latency matrix, regions, bandwidth matrix and
+    jittered trace."""
+    import numpy as np
+
+    from repro_torch.core.latency import (GeoClusterSpec, bandwidth_matrix,
+                                          geo_clustered_matrix, jitter_trace)
+
+    rng = np.random.default_rng(seed)
+    spec = GeoClusterSpec(n_nodes=n, n_clusters=max(2, min(5, n // 3)))
+    lat, regions = geo_clustered_matrix(spec, rng)
+    bw = bandwidth_matrix(regions, n, rng)
+    return lat, np.asarray(regions), bw, jitter_trace(lat, rounds, np.random.default_rng(seed + 1))
+
+
+def fig16_cluster(device, *, grouping: bool, filtering: bool, tiv: bool = True,
+                  compression: bool = False):
+    """Phase 35 (a): ``benchmarks/common.py:79-117``'s ``run_engine`` at Fig
+    16's quick settings, built on ``device``."""
+    from repro_torch.core.replication import EngineConfig, GeoCluster
+    from repro_torch.core.workload import YCSBConfig, YCSBGenerator
+
+    n = FIG16_NODES
+    _, regions, _, trace = geo_wan_cluster(n, FIG16_EPOCHS, FIG16_SEED)
+    wan = regions[:, None] != regions[None, :]
+    eng = GeoCluster(EngineConfig(n_nodes=n, grouping=grouping, filtering=filtering, tiv=tiv,
+                                  compression=compression, planner="milp", modeled_cpu=True),
+                     bandwidth_mbps=lan_wan_bandwidth(regions, n, 40.0), wan_mask=wan, seed=7,
+                     device=device)
+    gen = YCSBGenerator(YCSBConfig(n_keys=20_000, theta=0.7, read_ratio=0.5, hot_write_frac=0.35,
+                                   hot_locality=True, rewrite_frac=0.10, value_bytes=100),
+                        n, seed=8, node_region=regions)
+    return eng, gen, trace, FIG16_EPOCHS, FIG16_TXNS
+
+
+def serve_text(s) -> str:
+    """A ``ServeStats``' summary, the served rate unrounded."""
+    return (f"{s.reads_total:,.0f} reads, served {s.throughput_rps!r} reads/s; redirect "
+            f"{s.redirect_rate:.4f}, reject {s.reject_rate:.4f}, stale {s.stale_serve_rate:.4f}, "
+            f"cache hits {s.cache_hit_rate:.4f}; p50 {s.read_latency_p50_ms:.2f} ms, p99 "
+            f"{s.read_latency_p99_ms:.2f} ms (bound {s.max_staleness_ms:g} ms, {s.policy})")
+
+
+def serve_fields(s) -> dict:
+    """A ``ServeStats``' fields: per-epoch lists, totals, latency classes."""
+    return {"epochs": [dataclasses.asdict(e) for e in s.epochs],
+            "totals": dataclasses.asdict(s.totals), "values": s.latency_values_ms.tolist(),
+            "weights": s.latency_weights.tolist(), "wall_ms": s.wall_ms,
+            "summary": s.summary()}
+
+
+def only_joins(tag: str, counts: dict, want: int) -> None:
+    """Gate: ``want`` join launches, every other kernel 0."""
+    others = {k: v for k, v in counts.items() if k != "crdt_merge_rows" and v}
+    if others or counts["crdt_merge_rows"] != want:
+        fail(f"{tag} kernel counts {counts}, {want} joins expected (one a commit)")
+
+
+def fig16_check(dev, counters: dict) -> int:
+    """Phase 35 (a): Fig 16's four runs on the card and on the CPU, equal;
+    one digest; the normalized makespans the reference's.  Returns the
+    card runs' join launches."""
+    runs = {"baseline": dict(grouping=False, filtering=False, tiv=False),
+            "zlib": dict(grouping=False, filtering=False, tiv=False, compression=True),
+            "geococo": dict(grouping=True, filtering=True),
+            "geococo+zlib": dict(grouping=True, filtering=True, compression=True)}
+    card, counts = counted(counters, lambda: card_equals_cpu(
+        "[35]", [(name, functools.partial(fig16_cluster, **kw)) for name, kw in runs.items()],
+        dev))
+    only_joins("[35] (a)", counts, len(runs) * FIG16_EPOCHS)
+    base = card["baseline"].makespans_ms.mean()
+    norm = {k: float(rs.makespans_ms.mean() / base) for k, rs in card.items()}
+    if {k: round(v, 5) for k, v in norm.items()} != FIG16_NORM:
+        fail(f"[35] (a) normalized makespans {norm}, the reference's {FIG16_NORM}")
+    if len({rs.state_digest for rs in card.values()}) != 1:
+        fail("[35] (a) the four runs end in different states")
+    print("[35] (a) Fig 16 on the card: one state; normalized makespans "
+          + ", ".join(f"{k} {v!r}" for k, v in norm.items())
+          + "; WAN " + ", ".join(f"{k} {rs.wan_bytes / 1e6:.6f} MB" for k, rs in card.items()))
+    return counts["crdt_merge_rows"]
+
+
+def zlib_at_scale(dev, counters: dict, wan: dict) -> dict:
+    """Phase 35 (b): geococo-zlib on phase 32's loaded store and settings,
+    filter and compression CPU measured: its digests phase 32's geococo
+    run's; one join an epoch, every other kernel 0."""
+    import torch
+
+    eng, gen, trace = wan_cluster("geococo-zlib", False, WAN_KEYS, dev, modeled=False)
+    _, load_s = loaded_store(eng, gen)
+
+    def main_path():
+        t0 = time.perf_counter()
+        rs = eng.run(gen, trace, txns_per_node=WAN_TXNS, n_epochs=WAN_EPOCHS)
+        torch.cuda.synchronize()
+        return rs, time.perf_counter() - t0
+
+    (rs, wall), counts = counted(counters, main_path)
+    geo = wan["runs"]["geococo"]["rs"]
+    if (rs.state_digest, rs.value_digest, rs.committed) != (geo.state_digest, geo.value_digest,
+                                                             geo.committed):
+        fail(f"[35] (b) geococo-zlib ends in {rs.state_digest[:16]}... ({rs.committed} "
+             f"committed), phase 32's geococo in {geo.state_digest[:16]}... ({geo.committed})")
+    only_joins("[35] (b)", counts, WAN_EPOCHS)
+    times = list(eng.epoch_times)
+    tot = {k: sum(t[k] for t in times) * 1e3 for k in times[0] if k.endswith("_s")}
+    z = {k: sum(t[f"{k}_bytes"] for t in times) for k in ("stream", "zlib_in", "zlib_out")}
+    epochs_s = sum(tot.values()) / 1e3
+    print(f"[35] (b) geococo-zlib on phase 32's store ({WAN_KEYS:,} records x {WAN_VALUE_BYTES} B, "
+          f"loaded in {load_s * 1e3:.1f} ms), {WAN_EPOCHS} epochs {epochs_s * 1e3:.1f} ms "
+          f"({epochs_s / WAN_EPOCHS * 1e3:.2f} ms an epoch): {wan_times_text(times)}; "
+          f"compression: the streams built on the card {tot['stream_s']:.1f} ms, copied to the "
+          f"host {tot['stream_copy_s']:.1f}, zlib {tot['zlib_s']:.1f}; the rest of run() (the "
+          f"two digests) {(wall - epochs_s) * 1e3:.1f} ms")
+    for e, (st, t) in enumerate(zip(rs.epochs, times)):
+        print(f"    epoch {e:2d}: draws {t['draw_s'] * 1e3:6.1f} ms, copy {t['copy_s'] * 1e3:5.1f}, "
+              f"device {t['device_s'] * 1e3:6.1f}, host {t['host_s'] * 1e3:6.1f}, streams "
+              f"{t['stream_s'] * 1e3:5.1f}, their copies {t['stream_copy_s'] * 1e3:5.1f}, zlib "
+              f"{t['zlib_s'] * 1e3:6.1f}; WAN {st.wan_bytes / 1e6:.3f} MB, filter CPU "
+              f"{st.filter_cpu_ms:.2f} ms, sync {st.sync_ms:.2f} ms")
+    print(f"[35] (b) zlib: {z['zlib_in'] / 1e6:.3f} MB in, {z['zlib_out'] / 1e6:.3f} MB out "
+          f"(ratio {z['zlib_in'] / max(z['zlib_out'], 1):.1f}), "
+          f"{z['zlib_in'] / (tot['zlib_s'] / 1e3) / 1e6:.1f} MB/s on the host with the cuts; "
+          f"the streams {z['stream'] / 1e6:.3f} MB, their copies "
+          f"{z['stream'] / (tot['stream_copy_s'] / 1e3) / 1e9:.3f} GB/s")
+    print(f"[35] (b) the digests of phase 32's geococo run ({geo.state_digest[:12]}..., "
+          f"{rs.committed:,} committed); WAN {rs.wan_bytes / 1e6:.3f} MB against geococo's "
+          f"{geo.wan_bytes / 1e6:.3f} MB ({rs.wan_bytes / geo.wan_bytes - 1:+.1%}); modeled "
+          f"{rs.throughput_tps:,.0f} txn/s against {geo.throughput_tps:,.0f}; crdt_merge_rows "
+          f"{counts['crdt_merge_rows']} launches, every other kernel 0")
+    out = {"rs": rs, "launches": counts["crdt_merge_rows"], "zlib": dict(z), "times": tot}
+    del eng, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_check(dev, counters: dict) -> int:
+    """Phase 35 (c-i): ``bench_serving.py``'s quick regime on the card: the
+    bounds, flat against geococo, serving on against off; the card's
+    ``ServeStats`` equal to the CPU's in one run; the reference's served
+    reads/s.  Returns the card runs' join launches."""
+    from repro_torch.serve import ServeConfig
+
+    def run(strategy: str, bound: float | None, device):
+        serve = None if bound is None else ServeConfig(
+            clients_per_node=SERVE_CLIENTS, read_ratio=0.95, max_staleness_ms=bound,
+            policy="redirect", cache_keys=SERVE_CACHE_KEYS)
+        eng, gen, trace = tpcc_cluster(strategy, device, full=False, modeled=True,
+                                       rounds=SERVE_EPOCHS, streaming=True, epoch_ms=10.0,
+                                       serve=serve)
+        return eng.run(gen, trace, txns_per_node=SERVE_TXNS, n_epochs=SERVE_EPOCHS)
+
+    keys = [*SERVE_RPS, ("geococo", None)]
+    t0 = time.perf_counter()
+    card, counts = counted(counters, lambda: {key: run(*key, dev) for key in keys})
+    card_s = time.perf_counter() - t0
+    only_joins("[35] (c-i)", counts, len(keys) * SERVE_EPOCHS)
+    on, off = card[("geococo", SERVE_BOUND_MS)], card[("geococo", None)]
+    cpu = run("geococo", SERVE_BOUND_MS, "cpu")
+    differ = [k for k, v in serve_fields(on.serve).items() if serve_fields(cpu.serve)[k] != v]
+    if differ or wan_fields(dataclasses.replace(on, serve=None)) != \
+            wan_fields(dataclasses.replace(cpu, serve=None)):
+        fail(f"[35] (c-i) geococo at {SERVE_BOUND_MS:g} ms: the card's run differs from the "
+             f"CPU's (ServeStats {differ})")
+    if (off.state_digest, off.value_digest, off.wan_bytes, [e.wall_ms for e in off.epochs]) != \
+            (on.state_digest, on.value_digest, on.wan_bytes, [e.wall_ms for e in on.epochs]):
+        fail("[35] (c-i) serving changed the run's digests, WAN bytes or times")
+    if len({rs.state_digest for rs in card.values()}) != 1:
+        fail("[35] (c-i) flat and geococo end in different states")
+    for key, rps in SERVE_RPS.items():
+        if round(card[key].serve.throughput_rps) != rps:
+            fail(f"[35] (c-i) {key}: {card[key].serve.throughput_rps!r} reads/s, the "
+                 f"reference's {rps:,}")
+    print(f"[35] (c-i) bench_serving.py's quick regime on the card ({len(keys)} runs, "
+          f"{card_s:.1f} s): geococo at {SERVE_BOUND_MS:g} ms equals its CPU run (ServeStats "
+          f"field for field, every EpochStats field, digests); serving on = off in digests, WAN "
+          f"bytes and times; one state across flat and geococo; {counts['crdt_merge_rows']} "
+          f"joins, every other kernel 0")
+    for (strategy, bound), rps in SERVE_RPS.items():
+        print(f"[35] (c-i) {strategy} at {bound:g} ms: "
+              f"{serve_text(card[(strategy, bound)].serve)} (the reference: {rps:,})")
+    return counts["crdt_merge_rows"]
+
+
+def raft_check() -> dict:
+    """Phase 35 (d): Fig 11b's Raft plane (host numpy), flat against
+    GeoCoCo's relay over four payloads, without and with bandwidth: the
+    reference's gains."""
+    from repro_torch.core.replication import RaftCluster
+
+    _, _, bw, trace = geo_wan_cluster(RAFT_NODES, RAFT_STEPS, RAFT_SEED)
+    out = {}
+    for with_bw in (False, True):
+        t0 = time.perf_counter()
+        kw = {"bandwidth_mbps": bw} if with_bw else {}
+        gains = {}
+        for wl, payload in RAFT_PAYLOADS.items():
+            base = RaftCluster(RAFT_NODES, grouping=False, tiv=False, **kw).throughput(
+                trace, payload_bytes=payload)
+            geo = RaftCluster(RAFT_NODES, grouping=True, tiv=True, **kw).throughput(
+                trace, payload_bytes=payload)
+            gains[wl] = (base, geo, 100.0 * (geo / base - 1.0))
+        for wl, pct in RAFT_GAINS[with_bw].items():
+            if round(gains[wl][2], 1) != pct:
+                fail(f"[35] (d) {wl} {'with' if with_bw else 'without'} bandwidth: "
+                     f"{gains[wl][2]:+.3f}%, the reference's {pct:+.1f}%")
+        how = "with its bandwidth matrix" if with_bw else "without bandwidth (as the benchmark)"
+        print(f"[35] (d) Fig 11b, RaftCluster on wan_cluster({RAFT_NODES}, {RAFT_STEPS}, "
+              f"seed={RAFT_SEED}) {how}, {time.perf_counter() - t0:.2f} s: "
+              + "; ".join(f"{wl} {b!r} -> {g!r} ops/s ({p:+.2f}%)"
+                          for wl, (b, g, p) in gains.items()))
+        out[with_bw] = gains
+    return out
+
+
+def run_planes(dev, counters: dict, wan: dict) -> dict:
+    """Phase 35: WAN compression (Fig 16 card against CPU; geococo-zlib at
+    scale), the serving plane (bench_serving.py's regime card against CPU)
+    and the Raft plane (Fig 11b).  Phase 34 (b) serves at full size."""
+    import torch
+
+    t_phase = time.perf_counter()
+    memory_line("[35]", "start")
+    launches = fig16_check(dev, counters)
+    print(f"[35] (a) took {time.perf_counter() - t_phase:.1f} s")
+    t = time.perf_counter()
+    big = zlib_at_scale(dev, counters, wan)
+    print(f"[35] (b) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    launches += big["launches"] + serving_check(dev, counters)
+    print(f"[35] (c-i) took {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    raft = raft_check()
+    print(f"[35] (d) took {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    memory_line("[35]", "end")
+    took = time.perf_counter() - t_phase
+    print(f"[35] took {took:.1f} s (aim {PLANES_PHASE_AIM_S:g} s)")
+    return {"launches": launches, "zlib": big, "raft": raft, "seconds": took}
 
 
 def run_topk(shapes, dev, filter_ms: float) -> dict:
@@ -5292,6 +5604,11 @@ def main() -> None:
     entries["crdt_merge_rows"]["view_joins"] = stream["view_joins"]
     entries["crdt_merge_rows"]["view_kernel_ms"] = stream["view_kernel_ms"]
     entries["crdt_merge_rows"]["view_bound_ms"] = stream["view_bound_ms"]
+
+    # ---- 35. WAN compression, the serving plane and the Raft plane, on the emptied card
+    torch.cuda.empty_cache()
+    planes = run_planes(dev, counters, wan)
+    entries["crdt_merge_rows"]["launches"] += planes["launches"]
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

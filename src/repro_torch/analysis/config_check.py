@@ -1,17 +1,16 @@
 """Declarative config-compatibility checker (the port's own copy of
 ``repro.analysis.config_check``).
 
-One rule table holds every ``EngineConfig`` flag's constraints (checked
-by ``EngineConfig.__post_init__`` and ``GeoCluster.__init__``), in one
-place, as data — so adding a feature flag means adding a
+One rule table holds every ``EngineConfig`` and ``ServeConfig`` flag's
+constraints (checked by their ``__post_init__`` and ``GeoCluster.__init__``),
+in one place, as data — so adding a feature flag means adding a
 :class:`ConfigRule`, and tooling (tests, docs) can enumerate the full
-compatibility matrix without reading constructor code.  The reference's
-rules for its ``ServeConfig`` come with the serving plane (ROADMAP §1,
-W3).
+compatibility matrix without reading constructor code.
 
 Rules are keyed by the config class *name* — deliberately stringly, so
-this module imports nothing from ``repro_torch.core`` and sits below it in
-the layering (it calls into this module from its ``__post_init__``).
+this module imports nothing from ``repro_torch.core`` or
+``repro_torch.serve`` and sits below both in the layering (they call into
+it from their ``__post_init__``).
 
 Each rule carries a ``stage``:
 
@@ -108,6 +107,14 @@ def _flat_schedule_is_all_to_all(cfg) -> str | None:
     return None
 
 
+def _serve_clients_nonneg(cfg) -> str | None:
+    import numpy as np
+
+    if np.any(np.asarray(cfg.clients_per_node, dtype=float) < 0.0):
+        return "clients_per_node must be non-negative"
+    return None
+
+
 # ---------------------------------------------------------------------------
 # The rule table.  Order matters within a class: validate_config raises the
 # first violation, and the historical constructors checked in this order.
@@ -157,12 +164,48 @@ RULES: list[ConfigRule] = [
         if cfg.stats_window < 0 else None,
     ),
     ConfigRule(
+        "bounded-run-serve-retention", "EngineConfig", "requires", "config",
+        lambda cfg: (
+            "keep_epochs=False requires ServeConfig(keep_epochs=False): a "
+            "bounded-memory run cannot retain the serving plane's full "
+            "per-epoch list (run totals and latency percentiles are "
+            "unaffected — they come from the online ServeTotals)"
+            if (not cfg.keep_epochs and cfg.serve is not None
+                and cfg.serve.keep_epochs) else None
+        ),
+    ),
+    ConfigRule(
         "grouped-schedule-contract", "EngineConfig", "contract", "cluster",
         _grouped_schedule_contract,
     ),
     ConfigRule(
         "flat-engine-schedule", "EngineConfig", "contract", "cluster",
         _flat_schedule_is_all_to_all,
+    ),
+    # -- ServeConfig -------------------------------------------------------
+    ConfigRule(
+        "read-ratio-range", "ServeConfig", "range", "config",
+        lambda cfg: "read_ratio must be in [0, 1]"
+        if cfg.read_ratio < 0.0 or cfg.read_ratio > 1.0 else None,
+    ),
+    ConfigRule(
+        "staleness-bound-range", "ServeConfig", "range", "config",
+        lambda cfg: "max_staleness_ms must be >= 0"
+        if cfg.max_staleness_ms < 0.0 else None,
+    ),
+    ConfigRule(
+        "ops-rate-positive", "ServeConfig", "range", "config",
+        lambda cfg: "ops_per_client_s must be positive"
+        if cfg.ops_per_client_s <= 0.0 else None,
+    ),
+    ConfigRule(
+        "clients-nonnegative", "ServeConfig", "range", "config",
+        _serve_clients_nonneg,
+    ),
+    ConfigRule(
+        "cache-keys-range", "ServeConfig", "range", "config",
+        lambda cfg: "cache_keys must be in [0, n_keys]"
+        if cfg.cache_keys < 0 or cfg.cache_keys > cfg.n_keys else None,
     ),
 ]
 

@@ -5,8 +5,10 @@ transfer DAGs ``schedule``, the WAN simulator ``simulator``, the epoch
 sinks ``sinks``) and the WAN sync plane's database on the device: the
 CRDT store ``crdt``, epoch OCC ``occ``, the white-data filter
 ``whitedata``, the YCSB and TPC-C generators and the diurnal load
-``workload``, and the replication engine ``replication`` with its
-streaming timeline ``stream``."""
+``workload``, the replication engine ``replication`` (its WAN payloads
+compressed under ``geococo-zlib``, the Raft plane ``RaftCluster`` beside
+it) with its streaming timeline ``stream``.  The read serving plane that
+reads its views sits above it, in ``repro_torch.serve``."""
 
 from .replication import advance_views
 from .sinks import EpochContext, EpochSink

@@ -420,6 +420,21 @@ class CRDTTable:
             out.number(out.char(o, ":i", wh), item, di, wh)
         return out.bytes(), self.key_lengths(rows)
 
+    def record_bytes(self, rows: torch.Tensor, values: torch.Tensor, lengths: torch.Tensor,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``b"".join(key + value)`` of records in their order, built on the
+        rows' device as one flat uint8 tensor (each key from
+        :meth:`key_bytes`, each value its ``(words,)`` int32 row's bytes cut
+        to its length), and each record's length in it."""
+        keyb, klen = self.key_bytes(rows)
+        vals = values.reshape(-1).view(torch.uint8).reshape(rows.numel(), 4 * self.words)
+        rec = torch.cat([keyb, vals], 1)
+        cols = torch.arange(rec.shape[1], device=rec.device)
+        kw = keyb.shape[1]
+        lengths = lengths.to(torch.int64)
+        mask = torch.where(cols < kw, cols < klen[:, None], cols - kw < lengths[:, None])
+        return _compact(rec, mask), klen + lengths
+
     # -- values ------------------------------------------------------------
 
     def pack(self, values: Sequence[bytes]) -> torch.Tensor:

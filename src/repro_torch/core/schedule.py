@@ -406,8 +406,7 @@ def stitch_schedules(
     (:func:`~repro_torch.core.simulator.node_commit_ms` extracts exactly the
     per-node commit dependency set this builder gates sends on).
 
-    Beyond the replication engine, the reference's
-    ``RaftCluster.pipelined_commit_ms`` (not ported yet, ROADMAP §1, W6)
+    Beyond the replication engine, ``RaftCluster.pipelined_commit_ms``
     stitches ``batches_in_flight`` copies of a ``leader_schedule``
     (``epoch_ms=0``: no cadence clock) so in-flight Raft batches serialize
     on the leader's NIC instead of replicating for free.

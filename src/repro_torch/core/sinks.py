@@ -12,9 +12,8 @@ needs to be retained afterwards.
 :class:`RunAggregator` keeps running totals and moments
 (:class:`RunSummary`) plus the retained epochs, all of them
 (``EngineConfig(keep_epochs=True)``, the default) or a bounded trailing
-window (``keep_epochs=False, stats_window=...``).  The reference's other
-sink, the serving plane's ``ServingSink``, comes with that plane (ROADMAP
-§1, W3).
+window (``keep_epochs=False, stats_window=...``).  The serving plane's
+``ServingSink`` (``repro_torch.serve.plane``) is the other sink.
 """
 
 from __future__ import annotations

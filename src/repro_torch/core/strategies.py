@@ -10,8 +10,8 @@ gradient-exchange strategies under ``device_sync``
 ``wan_sync`` (here).  Names are shared with the reference: ``flat`` /
 ``hier`` / ``geococo`` mean the same exchange in both packages and on both
 planes.  This is not the reference's table: the port cannot import
-``repro``, so it keeps its own.  ``geococo-zlib`` is registered, but
-``EngineConfig`` refuses it until compression is ported (ROADMAP §1, W4).
+``repro``, so it keeps its own.  The serving plane registers its read
+policies under ``serve_policy`` (``repro_torch.serve.plane``).
 """
 
 from __future__ import annotations

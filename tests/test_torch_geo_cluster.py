@@ -5,9 +5,13 @@ and both digests; integers and digests exact, the simulator's floats
 exact) for ``flat``, ``hier`` and ``geococo`` under the event and barrier
 engines, with ``kcenter`` and ``modeled_cpu``; a WAN mask and a bounded
 stats window; the aggregator failover at mid-run (the second run restarts
-its epochs, so the stale rule fires); the config's rule table; each
-refused flag raising; the device default; the example at a small size;
-reference fault 15 (views that start empty on a loaded store) not copied.
+its epochs, so the stale rule fires); the config's rule table; the refused
+flag (``verify_schedules``, W7) raising; the device default; the example at
+a small size; reference fault 15 (views that start empty on a loaded store)
+not copied.
+The serving plane, compression and the Raft plane have their own files
+(``test_torch_serve*.py``, ``test_torch_compression*.py``,
+``test_torch_raft.py``).
 The reference's engine is numpy only: neither side imports JAX here.
 """
 
@@ -24,7 +28,7 @@ import repro.core as ref
 from repro_torch.core import latency as plat
 from repro_torch.core import planner as pplan
 from repro_torch.core import strategies as pstrat
-from repro_torch.core.replication import EngineConfig, GeoCluster, RaftCluster
+from repro_torch.core.replication import EngineConfig, GeoCluster
 from repro_torch.core.workload import YCSBConfig, YCSBGenerator
 
 REPO = Path(__file__).resolve().parents[1]
@@ -148,9 +152,6 @@ def test_config_rules_and_presets_as_the_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(streaming=True, serve=object()), "W3"),
-    (dict(compression=True), "W4"),
-    (dict(sync_strategy="geococo-zlib"), "W4"),
     (dict(verify_schedules=True), "W7"),
 ])
 def test_refused_flags_name_their_roadmap_item(kw, item):
@@ -182,8 +183,6 @@ def test_refused_parts_outside_the_config():
     from repro_torch.core.schedule import all_to_all_schedule
     from repro_torch.core.simulator import WANSimulator
 
-    with pytest.raises(NotImplementedError, match="W6"):
-        RaftCluster(5)
     with pytest.raises(NotImplementedError, match="W7"):
         all_to_all_schedule(3, 1.0).verify()
     with pytest.raises(NotImplementedError, match="W7"):

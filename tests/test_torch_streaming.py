@@ -18,6 +18,8 @@ import numpy as np
 import pytest
 
 import repro.core as ref
+import repro.serve as rserve
+import repro_torch.serve as pserve
 from repro.core import schedule as rsched
 from repro.core import simulator as rsim
 from repro.core import stream as rstream
@@ -52,19 +54,23 @@ def topology(n=5, epochs=8, seed=1):
     return pl, pr, (rt, pt), wan
 
 
-def streaming_engines(workload: str, *, epochs=8, bw=200.0, epoch_ms=2.0, **cfg_kw):
+def streaming_engines(workload: str, *, epochs=8, bw=200.0, epoch_ms=2.0, serve=None,
+                      **cfg_kw):
     """The reference's and the port's streaming engines, generators and
     traces, built alike (``tests/test_streaming.py``'s and
     ``tests/test_staleness.py``'s settings, with ``kcenter`` and
-    ``modeled_cpu``)."""
+    ``modeled_cpu``); ``serve``: the keywords of a ``ServeConfig`` each
+    side makes from its own package."""
     _, regions, (rt, pt), wan = topology(epochs=epochs)
     bwm = np.where(wan, bw, 10_000.0)
     np.fill_diagonal(bwm, np.inf)
     cfg = dict(dict(n_nodes=5, streaming=True, planner="kcenter", epoch_ms=epoch_ms,
                     modeled_cpu=True, sync_strategy="geococo"), **cfg_kw)
     kw = dict(bandwidth_mbps=bwm, wan_mask=wan, seed=7)
-    re = ref.GeoCluster(ref.EngineConfig(**cfg), **kw)
-    pe = GeoCluster(EngineConfig(**cfg), device="cpu", **kw)
+    sides = [None, None] if serve is None else \
+        [rserve.ServeConfig(**serve), pserve.ServeConfig(**serve)]
+    re = ref.GeoCluster(ref.EngineConfig(**cfg, serve=sides[0]), **kw)
+    pe = GeoCluster(EngineConfig(**cfg, serve=sides[1]), device="cpu", **kw)
     if workload == "ycsb":
         rg = ref.YCSBGenerator(ref.YCSBConfig(**YCSB), 5, seed=3, node_region=regions)
         pg = YCSBGenerator(YCSBConfig(**YCSB), 5, seed=3, node_region=regions)
