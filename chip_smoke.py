@@ -325,12 +325,29 @@ Phases, each of which fails the run (nonzero exit, no result line):
    WAN bytes and times, the reference's served reads/s; (d) Fig 11b's
    ``RaftCluster`` (host numpy) without and with bandwidth, the reference's
    gains; ``crdt_merge_rows`` launched once a commit in (a)-(c), every
-   other kernel 0.
+   other kernel 0;
+36. the static-analysis package (``repro_torch.analysis``): (a) the model
+   checker's smoke tier, its five theorems one by one, the table theorems
+   (CRDT confluence, OCC atomicity, abort monotonicity, eviction and the
+   serving prefix) on tables on the card, every join through
+   ``crdt_merge_rows``: each theorem's instances and info the reference's,
+   zero violations, each wall time and join count printed; its four seeded
+   mutants rejected with the reference's count of violations each; (b) phase
+   32's geococo run on the loaded 10^7-key store again with
+   ``verify_schedules=True`` (its digests and every ``EpochStats`` field but
+   the measured filter CPU's times phase 32's, one schedule verified an
+   epoch), and phase 34 (b)'s five-view run, modeled filter CPU, 8 epochs,
+   verified against unverified (every field, both digests, the read
+   aborts; two schedules verified an epoch); the verifier's host time an
+   epoch against the epoch's wall; (c) every mutator of
+   ``repro_torch.analysis.mutate`` on a round of (b) or on the stream its
+   rounds stitch into makes ``WANSimulator(verify=True)`` raise
+   ``ScheduleVerificationError`` naming its rule.
 
 Each model's weights are released before the next one's are drawn (no two
 fit on one 80 GB card together): rwkv6-7b, then recurrentgemma-9b.  Phases 9
 and 10 start on an empty card, after recurrentgemma-9b's weights are
-released, and phases 11, 13, 15-30 and 32-35 each on an empty card after the
+released, and phases 11, 13, 15-30 and 32-36 each on an empty card after the
 phase before; phase 31 allocates nothing on the card.  Each phase prints its
 wall time.
 
@@ -692,6 +709,32 @@ RAFT_PAYLOADS = {"YCSB-A": 64_000.0, "YCSB-B": 24_000.0, "YCSB-C": 12_000.0,
 RAFT_GAINS = {False: {"YCSB-A": 12.0, "YCSB-B": 12.0, "YCSB-C": 12.0, "YCSB-D": 12.0},
               True: {"YCSB-A": 25.1, "YCSB-C": 14.8}}
 PLANES_PHASE_AIM_S = 45.0
+# phase 36: the static-analysis package on the card.  (a) the model checker
+# (repro_torch.analysis.modelcheck) at its smoke tier, all five theorems and
+# the self-test, its table theorems on the card's tables: each theorem's
+# instances and info the reference's (python -m repro.analysis.modelcheck
+# --tier smoke on the CPU), each seeded mutant's violations the reference's
+# (the quick tier's table theorems take ~1.5 min on an H100, PERF.md: over
+# the phase's aim, so not run here); (b) phase 32's geococo run on the loaded
+# 10^7-key YCSB store again with verify_schedules=True (its digests and every
+# EpochStats field but the measured filter CPU's times as phase 32's), and
+# phase 34 (b)'s five-view YCSB streaming run with verify_schedules=True,
+# modeled filter CPU, cut to VERIFY_VIEW_EPOCHS epochs, against an
+# unverified run of the same cut (every field, both digests, the read
+# aborts); (c) every mutator of repro_torch.analysis.mutate on a schedule of
+# (b) rejected by WANSimulator(verify=True)
+MODELCHECK_SMOKE = {
+    "admission": (1840, {"valid_accepted": 1840, "mutants": "840/840", "corpus_size": 38,
+                         "corpus_max_loss": 0.4257907542579076}),
+    "confluence": (14, {"universe": 4}),
+    "occ_atomicity": (7992, {"write_skew_instances": 48}),
+    "abort_monotonicity": (1024, {"views": 3}),
+    "eviction_prefix": (196, {"grids": [(2, 3)]}),
+}
+MODELCHECK_MUTANTS = {"broken-admission-ranking": 38, "non-commutative-merge": 6,
+                      "occ-reinstatement": 378, "frontier-under-read": 196}
+VERIFY_VIEW_EPOCHS = 8
+ANALYSIS_PHASE_AIM_S = 60.0
 # phase 31: the band that the card's peak memory over a step (after a reset)
 # must hold against the dry-run's peak of live storage: the caching
 # allocator rounds each block up to 512 bytes and keeps cuBLAS' workspaces,
@@ -5343,6 +5386,259 @@ def run_planes(dev, counters: dict, wan: dict) -> dict:
     return {"launches": launches, "zlib": big, "raft": raft, "seconds": took}
 
 
+# the EpochStats fields that read the filter's measured CPU time (phase 32
+# measures it on the card, so a second run's differ)
+MEASURED_FIELDS = ("filter_cpu_ms", "sync_ms", "wall_ms", "sync_serial_ms", "sync_overlap_ms",
+                   "sync_cpu_hidden_ms", "sync_wan_overlap_ms", "pipeline_overlap_ms",
+                   "stream_commit_ms")
+
+
+def checker_theorems(tag: str, mc, scope, names, want: dict, counters: dict, dev) -> dict:
+    """Each theorem of ``names`` at ``scope`` on the card's tables, its
+    instances and info gated against ``want`` (the reference's), zero
+    violations, every instance counted clean, joins through
+    ``crdt_merge_rows`` only (at least one a table theorem); returns each
+    theorem's wall time and join launches."""
+    import torch
+
+    out = {}
+    for name in names:
+        mc.reset_model_checked_count()
+        t0 = time.perf_counter()
+        report, counts = counted(counters, lambda: mc.run_tier(scope, only=[name],
+                                                               selftest=False, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rep = report.theorems[0]
+        info = {k: v for k, v in rep.info.items() if k != "corpus"}
+        if rep.violations or (rep.instances, info) != want[name] or \
+                mc.model_checked_count(name) != rep.instances:
+            fail(f"{tag} {name}: {rep.instances} instances, info {info}, "
+                 f"{len(rep.violations)} violations (first: "
+                 f"{rep.violations[0] if rep.violations else None}); the reference's "
+                 f"{want[name]}")
+        joins = counts["crdt_merge_rows"]
+        others = {k: v for k, v in counts.items() if k != "crdt_merge_rows" and v}
+        if others or (name != "admission") != (joins > 0):
+            fail(f"{tag} {name}: kernel counts {counts}")
+        out[name] = {"s": wall, "joins": joins, "instances": rep.instances}
+        shown = {k: float(v) if isinstance(v, float) else v for k, v in info.items()}
+        print(f"{tag} {name}: {rep.instances:,} instances, 0 violations, {shown} (the "
+              f"reference's), {wall:.2f} s on the card, {joins:,} crdt_merge_rows launches "
+              f"({wall / rep.instances * 1e3:.3f} ms an instance)")
+    return out
+
+
+def run_checker(dev, counters: dict) -> dict:
+    """Phase 36 (a): the model checker's smoke tier on the card and its four
+    seeded mutants."""
+    from repro_torch.analysis import modelcheck as mc
+
+    t0 = time.perf_counter()
+    smoke = checker_theorems("[36] (a) smoke", mc, mc.scope_for("smoke"), mc.THEOREMS,
+                             MODELCHECK_SMOKE, counters, dev)
+    t = time.perf_counter()
+    reports, counts = counted(counters, lambda: mc.selftest_reports(dev))
+    got = {name: len(r.violations) for name, r in reports.items()}
+    if got != MODELCHECK_MUTANTS:
+        fail(f"[36] (a) the seeded mutants' violations {got}, the reference's "
+             f"{MODELCHECK_MUTANTS}")
+    self_s = time.perf_counter() - t
+    print(f"[36] (a) self-test: 4 of 4 seeded mutants rejected, violations {got} (the "
+          f"reference's), {self_s:.2f} s, {counts['crdt_merge_rows']:,} joins")
+    smoke_s = time.perf_counter() - t0
+    launches = sum(r["joins"] for r in smoke.values()) + counts["crdt_merge_rows"]
+    print(f"[36] (a) the smoke tier and self-test {smoke_s:.1f} s, {launches:,} "
+          f"crdt_merge_rows launches")
+    return {"launches": launches, "smoke": smoke, "selftest_s": self_s}
+
+
+@contextlib.contextmanager
+def verifier_clock():
+    """The schedule verifier's host time inside the block: the one-shot
+    ``verify_schedule`` (as ``WANSimulator.run`` calls it) and the per-epoch
+    ``StreamScheduleVerifier.check_epoch``, each call timed; ``rounds``
+    keeps the schedules verified one-shot, in order."""
+    from repro_torch.analysis import schedule_check as sc
+
+    clock = {"s": 0.0, "calls": 0, "rounds": []}
+    one, per_epoch = sc.verify_schedule, sc.StreamScheduleVerifier.check_epoch
+
+    def timed_one(schedule, **kw):
+        t0 = time.perf_counter()
+        try:
+            return one(schedule, **kw)
+        finally:
+            clock["s"] += time.perf_counter() - t0
+            clock["calls"] += 1
+            clock["rounds"].append(schedule)
+
+    def timed_epoch(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return per_epoch(self, *args, **kw)
+        finally:
+            clock["s"] += time.perf_counter() - t0
+            clock["calls"] += 1
+
+    sc.verify_schedule, sc.StreamScheduleVerifier.check_epoch = timed_one, timed_epoch
+    try:
+        yield clock
+    finally:
+        sc.verify_schedule, sc.StreamScheduleVerifier.check_epoch = one, per_epoch
+
+
+def verified_run(tag: str, build, epochs: int, counters: dict) -> dict:
+    """One run from a store loaded before its epochs through ``run()``, the
+    verifier's host time and calls counted; gated one join a commit (and one
+    a view's epoch), every other kernel 0."""
+    import torch
+
+    from repro_torch.analysis import schedule_check as sc
+
+    eng, gen, trace = build()
+    loaded_store(eng, gen)
+    sc.reset_verified_schedule_count()
+    with verifier_clock() as clock:
+        t0 = time.perf_counter()
+        rs, counts = counted(counters, lambda: eng.run(gen, trace, txns_per_node=WAN_TXNS,
+                                                       n_epochs=epochs))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    want = eng.store.merges + eng.view_merges
+    others = {k: v for k, v in counts.items() if k != "crdt_merge_rows" and v}
+    if others or eng.store.merges != epochs or counts["crdt_merge_rows"] != want:
+        fail(f"{tag}: kernel counts {counts} in {epochs} epochs ({eng.store.merges} commits, "
+             f"{eng.view_merges} views' joins)")
+    epochs_s = sum(sum(t.values()) for t in eng.epoch_times)
+    out = {"rs": rs, "wall": wall, "epochs_s": epochs_s, "verified": sc.verified_schedule_count(),
+           "verify_s": clock["s"], "verify_calls": clock["calls"], "rounds": clock["rounds"],
+           "launches": counts["crdt_merge_rows"], "lat": trace[0]}
+    del eng, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def verify_text(r: dict, epochs: int) -> str:
+    return (f"{r['verified']} schedules verified clean ({r['verify_calls']} verifier calls), "
+            f"the verifier {r['verify_s'] * 1e3:.3f} ms of host time, "
+            f"{r['verify_s'] / epochs * 1e3:.4f} ms an epoch against an epoch's "
+            f"{r['epochs_s'] / epochs * 1e3:.2f} ms ({r['verify_s'] / r['epochs_s']:.3%}); "
+            f"run() {r['wall']:.2f} s")
+
+
+def run_verified(dev, counters: dict, wan: dict | None) -> dict:
+    """Phase 36 (b), (c): phase 32's geococo run verified, against phase 32's
+    run (every field but the measured filter CPU's times, both digests);
+    phase 34 (b)'s five-view run verified, against an unverified run of the
+    same cut (modeled CPU: every field); every mutator rejected."""
+    import numpy as np
+
+    from repro_torch.analysis import mutate
+    from repro_torch.analysis.schedule_check import ScheduleVerificationError
+    from repro_torch.core.schedule import stitch_schedules
+    from repro_torch.core.simulator import WANSimulator
+
+    def geococo(verify: bool):
+        return lambda: wan_cluster("geococo", False, WAN_KEYS, dev, modeled=False,
+                                   verify_schedules=verify)
+
+    def views(verify: bool):
+        return lambda: wan_cluster("geococo", False, WAN_KEYS, dev, modeled=True, streaming=True,
+                                   staleness_feedback=True, epoch_ms=STREAM_EPOCH_MS,
+                                   verify_schedules=verify)
+
+    def deterministic(rs) -> dict:
+        f = wan_fields(rs)
+        f["epochs"] = [{k: v for k, v in e.items() if k not in MEASURED_FIELDS}
+                       for e in f["epochs"]]
+        del f["summary"]
+        return f
+
+    if wan is None:
+        geo = verified_run("[36] (b) phase 32's geococo run", geococo(False), WAN_EPOCHS,
+                           counters)["rs"]
+    else:
+        geo = wan["runs"]["geococo"]["rs"]
+    ver = verified_run("[36] (b) geococo verified", geococo(True), WAN_EPOCHS, counters)
+    if deterministic(ver["rs"]) != deterministic(geo) or ver["verified"] != WAN_EPOCHS:
+        fail(f"[36] (b) the verified geococo run differs from phase 32's, or verified "
+             f"{ver['verified']} schedules in {WAN_EPOCHS} epochs")
+    rs = ver["rs"]
+    print(f"[36] (b) geococo on phase 32's loaded store ({WAN_KEYS:,} keys), "
+          f"verify_schedules=True, {WAN_EPOCHS} epochs: phase 32's digests "
+          f"{rs.state_digest[:12]}... / {rs.value_digest[:12]}..., {rs.committed:,} committed, "
+          f"{rs.aborted:,} aborted (read {rs.read_aborts}, write-write {rs.ww_aborts:,}), WAN "
+          f"{rs.wan_bytes / 1e6:.3f} MB, every EpochStats field but the measured filter CPU's "
+          f"times equal; {verify_text(ver, WAN_EPOCHS)}")
+    runs = {}
+    for verify in (False, True):
+        runs[verify] = verified_run(f"[36] (b) five views, verify={verify}", views(verify),
+                                    VERIFY_VIEW_EPOCHS, counters)
+    plain, checked = runs[False], runs[True]
+    if wan_fields(plain["rs"]) != wan_fields(checked["rs"]) or \
+            checked["verified"] != 2 * VERIFY_VIEW_EPOCHS or plain["verified"] != 0:
+        fail(f"[36] (b) the verified five-view run differs from the unverified one, or "
+             f"verified {checked['verified']} schedules in {VERIFY_VIEW_EPOCHS} epochs")
+    rs = checked["rs"]
+    print(f"[36] (b) phase 34 (b)'s five-view YCSB run at {STREAM_EPOCH_MS:g} ms, modeled "
+          f"filter CPU, {VERIFY_VIEW_EPOCHS} epochs, verify_schedules=True against False: every "
+          f"EpochStats and summary field and both digests equal ({rs.state_digest[:12]}...); "
+          f"read aborts {rs.read_aborts:,} (rate {rs.read_abort_rate:.4f}), write-write "
+          f"{rs.ww_aborts:,}, view lag mean {rs.summary.view_lag_mean:.3f}, max "
+          f"{rs.summary.view_lag_max}; {checked['launches']} joins ({VERIFY_VIEW_EPOCHS} "
+          f"commits and the views'); {verify_text(checked, VERIFY_VIEW_EPOCHS)}")
+    # (c) every mutator on a round of (b) or the stream its rounds stitch into
+    rounds = checked["rounds"]
+    lat = checked["lat"]
+    n = len(WAN_REGIONS)
+    bases = {"round": rounds[-1],
+             "stitched": stitch_schedules(rounds[:4], node_exec_ms=[[1.0] * n] * 4,
+                                          epoch_ms=STREAM_EPOCH_MS, n=n)}
+    rng = np.random.default_rng(36)
+    caught = []
+    for rule in mutate.MUTATORS:
+        base, mut = next(((b, m) for b, m in ((b, mutate.mutate_schedule(s, rule, rng, n_nodes=n))
+                                            for b, s in bases.items()) if m is not None),
+                         (None, None))
+        if mut is None:
+            fail(f"[36] (c) no mutant for {rule!r} on (b)'s schedules")
+        try:
+            WANSimulator(lat, WAN_BANDWIDTH_MBPS, verify=True).run(mut)
+        except ScheduleVerificationError as err:
+            rules = {v.rule for v in err.violations}
+            if rule not in rules:
+                fail(f"[36] (c) the {rule!r} mutant was rejected for {sorted(rules)} only")
+            caught.append(f"{rule} ({base}, {len(err.violations)})")
+        else:
+            fail(f"[36] (c) WANSimulator(verify=True) ran the {rule!r} mutant")
+    print(f"[36] (c) every mutator rejected by WANSimulator(verify=True), its rule among the "
+          f"violations (base, violations): {', '.join(caught)}")
+    return {"launches": ver["launches"] + plain["launches"] + checked["launches"],
+            "geococo": {k: ver[k] for k in ("verify_s", "epochs_s", "wall", "verified")},
+            "views": {k: checked[k] for k in ("verify_s", "epochs_s", "wall", "verified")}}
+
+
+def run_analysis(dev, counters: dict, wan: dict | None) -> dict:
+    """Phase 36: the static-analysis package on the card: (a) the model
+    checker, (b) verified schedules at scale, (c) the mutators rejected."""
+    import torch
+
+    t_phase = time.perf_counter()
+    memory_line("[36]", "start")
+    checker = run_checker(dev, counters)
+    print(f"[36] (a) took {time.perf_counter() - t_phase:.1f} s")
+    t = time.perf_counter()
+    verified = run_verified(dev, counters, wan)
+    print(f"[36] (b, c) took {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
+    memory_line("[36]", "end")
+    took = time.perf_counter() - t_phase
+    print(f"[36] took {took:.1f} s (aim {ANALYSIS_PHASE_AIM_S:g} s)")
+    return {"launches": checker["launches"] + verified["launches"], "checker": checker,
+            "verified": verified, "seconds": took}
+
+
 def run_topk(shapes, dev, filter_ms: float) -> dict:
     """Phase 20: geococo's chunked top-k (``topk_select``: f32 g + r, per
     chunk of 2048 the top 10% by magnitude, the sent values and the new
@@ -5609,6 +5905,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     planes = run_planes(dev, counters, wan)
     entries["crdt_merge_rows"]["launches"] += planes["launches"]
+
+    # ---- 36. the static-analysis package: the model checker on the card's tables,
+    # verified schedules at scale, the mutators rejected; on the emptied card
+    torch.cuda.empty_cache()
+    analysis = run_analysis(dev, counters, wan)
+    entries["crdt_merge_rows"]["launches"] += analysis["launches"]
 
     leaked = sorted(m for m in sys.modules if m == "jax" or m.split(".")[0] == "repro")
     if leaked:

@@ -636,6 +636,20 @@ class CRDTTable:
         self.present[keys] = self.present[keys] | took
         return took
 
+    def merge_store(self, other: "CRDTTable") -> None:
+        """Join every present row of ``other`` (a table of the same layout)
+        into this one through :meth:`top_rows` and :meth:`join_rows`, so
+        through ``crdt_merge_rows``: the reference store's ``merge_store``.
+        The join is the lattice max, so no order of the rows is needed."""
+        if other.layout() != self.layout():
+            raise ValueError(f"merge_store joins tables of one layout; got {other.layout()} "
+                             f"into {self.layout()}")
+        rows = torch.nonzero(other.present).flatten()
+        if rows.numel() == 0:
+            return
+        batch = (other.values[rows], other.versions[rows], other.lengths[rows])
+        self.join_rows(*self.top_rows(rows.to(self.device), *(x.to(self.device) for x in batch)))
+
     def _changes(self, rows: torch.Tensor, versions: torch.Tensor) -> int:
         """How many updates of a batch would change the table applied one
         by one in batch order (the reference's ``apply_many`` count): those

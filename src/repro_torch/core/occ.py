@@ -151,7 +151,8 @@ class EpochBatch:
         """The batch of host :class:`Txn`\\ s.  Keys go to ``table``'s rows
         and values into its words; without a table keys get first-seen ids
         and values are left out but for their lengths (enough for
-        validation without a snapshot)."""
+        validation without a snapshot).  Every integer field is one copy to
+        the device (views of one buffer), the values another."""
         dev = table.device if table is not None else torch.device(device or "cpu")
         ids: dict[str, int] = {}
         row = table.row_of if table is not None else (lambda k: ids.setdefault(k, len(ids)))
@@ -163,13 +164,14 @@ class EpochBatch:
                 torch.zeros(0, table.words, dtype=torch.int32, device=dev)
         else:
             vals = torch.zeros(len(writes), 0, dtype=torch.int32, device=dev)
-        return cls(
-            _i64([t.txn_id for t in txns], dev), _i64([t.node for t in txns], dev),
-            _i64([t.epoch for t in txns], dev), _i64([t.seq for t in txns], dev),
-            _i64([r[0] for r in reads], dev), _i64([r[1] for r in reads], dev),
-            _i64([r[2] for r in reads], dev).reshape(-1, 3),
-            _i64([w[0] for w in writes], dev), _i64([w[1] for w in writes], dev), vals,
-            _i64([len(w[2]) for w in writes], dev), _i64([len(w[3]) for w in writes], dev))
+        cols = [[t.txn_id for t in txns], [t.node for t in txns], [t.epoch for t in txns],
+                [t.seq for t in txns], [r[0] for r in reads], [r[1] for r in reads],
+                [x for r in reads for x in r[2]], [w[0] for w in writes],
+                [w[1] for w in writes], [len(w[2]) for w in writes], [len(w[3]) for w in writes]]
+        flat = _i64([x for c in cols for x in c], dev)
+        parts = list(torch.split(flat, [len(c) for c in cols]))
+        parts[6] = parts[6].reshape(-1, 3)
+        return cls(*parts[:9], vals, *parts[9:])
 
     def to_txns(self, table: CRDTTable) -> list[Txn]:
         """The host :class:`Txn`\\ s of the batch (keys and values through

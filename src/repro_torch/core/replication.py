@@ -57,8 +57,11 @@ there: no device codec gives zlib's exact sizes.
 quorum, with GeoCoCo optionally relaying through group aggregators; host
 numpy, timing quorums only.
 
-Schedule verification (``verify_schedules=True``) is refused with
-``NotImplementedError`` naming its ROADMAP item (W7).
+``verify_schedules=True`` statically verifies every schedule the engine
+simulates (``repro_torch.analysis.schedule_check``): each epoch's round,
+the stitched stream (``stream_mode="resim"``) and each segment appended to
+the incremental timeline.  It only observes: a verified run reports what an
+unverified one does, or raises ``ScheduleVerificationError``.
 """
 
 from __future__ import annotations
@@ -95,10 +98,6 @@ __all__ = ["EngineConfig", "EpochStats", "RunStats", "GeoCluster", "RaftCluster"
            "advance_views"]
 
 
-def _refused(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP §1, {item})")
-
-
 # an epoch's compression split (GeoCluster.epoch_times under compression)
 _ZLIB_PARTS = ("stream_s", "stream_copy_s", "zlib_s")
 _ZLIB_BYTES = ("stream_bytes", "zlib_in_bytes", "zlib_out_bytes")
@@ -119,8 +118,7 @@ class EngineConfig:
     ``filter_name`` select registered implementations for the grouping
     transmission and the aggregator filter.  Flag compatibility is checked
     by the rule table (``repro_torch.analysis.config_check``), with the
-    reference's messages; ``verify_schedules=True`` then raises
-    ``NotImplementedError`` (W7).
+    reference's messages.
     """
 
     n_nodes: int
@@ -147,7 +145,12 @@ class EngineConfig:
     # run totals come from the online RunSummary either way
     keep_epochs: bool = True
     stats_window: int = 64
-    verify_schedules: bool = False     # refused (W7)
+    # debug hook: statically verify every schedule the engine simulates
+    # (repro_torch.analysis.schedule_check.verify_schedule — acyclicity, phase
+    # monotonicity along deps, clock-chain linearity, payload/node sanity)
+    # before it runs.  O(V+E) per round; raises ScheduleVerificationError
+    # on the first unsound DAG instead of silently mistiming it.
+    verify_schedules: bool = False
     sync_strategy: str | None = None   # named wan_sync preset (overrides booleans)
     grouping: bool = True              # GeoCoCo hierarchical transmission
     filtering: bool = True             # white-data filter at aggregators
@@ -174,8 +177,6 @@ class EngineConfig:
             _strategies.get("schedule", self.schedule_name)
         if self.filter_name is not None:
             _strategies.get("filter", self.filter_name)
-        if self.verify_schedules:
-            raise _refused("verify_schedules=True", "W7: analysis/schedule_check.py")
 
     @property
     def resolved_sync_strategy(self) -> str:
@@ -811,7 +812,7 @@ class GeoCluster:
         the round, its simulator and its result."""
         rnd = self._prepare_epoch(epoch, batch, lat, views=views)
         sim = WANSimulator(lat, self.bandwidth, loss=self.loss, rng=self.rng,
-                           barrier=self.cfg.barrier)
+                           barrier=self.cfg.barrier, verify=self.cfg.verify_schedules)
         res = sim.run(rnd.schedule)
         self.msg_matrix += res.msg_matrix
         return rnd, sim, res
@@ -898,7 +899,8 @@ class GeoCluster:
             epoch_ms=cfg.epoch_ms,
             n=cfg.n_nodes,
         )
-        stream_sim = WANSimulator(lats[0], self.bandwidth, loss=self.loss, rng=self.rng)
+        stream_sim = WANSimulator(lats[0], self.bandwidth, loss=self.loss, rng=self.rng,
+                                  verify=cfg.verify_schedules)
         stream = stream_sim.run(stitched, lats=lats)
         commits = node_commit_ms(stitched, stream, cfg.n_nodes, len(rounds))
         return commits, stream, stitched
@@ -966,7 +968,8 @@ class GeoCluster:
         cfg = self.cfg
         lat_cycle = EpochLatencyCycle(trace, max(n_epochs, 1))
         timeline = StreamingTimeline(cfg.n_nodes, bandwidth_mbps=self.bandwidth,
-                                     loss=self.loss, epoch_ms=cfg.epoch_ms)
+                                     loss=self.loss, epoch_ms=cfg.epoch_ms,
+                                     verify=cfg.verify_schedules)
         serve_sink = None
         sinks: list[EpochSink] = [agg]
         if cfg.serve is not None:

@@ -146,12 +146,16 @@ class TransmissionSchedule:
     # -- DAG accessors -------------------------------------------------------
 
     def verify(self, *, n_nodes: int | None = None):
-        """The reference's static DAG verifier
-        (``analysis/schedule_check.py``), not ported yet: raises."""
-        raise NotImplementedError(
-            "schedule verification is not ported yet (ROADMAP §1, W7: "
-            "analysis/schedule_check.py)"
-        )
+        """Statically verify this DAG's engine invariants (acyclicity, dep
+        bounds, phase monotonicity along dep edges, epoch contiguity,
+        clock-chain linearity, payload/node sanity).  Returns the list of
+        :class:`~repro_torch.analysis.violations.Violation` — empty when sound.
+        The constructor enforces only the topological-order subset; this is
+        the full check the ``EngineConfig(verify_schedules=True)`` debug
+        hook runs on every simulated schedule."""
+        from ..analysis.schedule_check import verify_schedule
+
+        return verify_schedule(self, n_nodes=n_nodes)
 
     @property
     def n_transfers(self) -> int:

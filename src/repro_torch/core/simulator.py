@@ -254,8 +254,9 @@ class WANSimulator:
     engine-independent.  ``admission=False`` disables the event engine's
     bandwidth-admission heuristic (greedy ASAP starts, the pre-fix
     behavior — kept for the adversarial regression tests and ablation).
-    ``verify=True`` (the reference's static schedule verifier) is not
-    ported yet and raises.
+    ``verify=True`` statically verifies every schedule before executing it
+    (:func:`repro_torch.analysis.schedule_check.verify_schedule` — acyclicity,
+    phase monotonicity along deps, clock-chain linearity, ...).
     """
 
     def __init__(
@@ -282,11 +283,7 @@ class WANSimulator:
         self.stochastic_loss = stochastic_loss
         self.barrier = barrier
         self.admission = admission
-        if verify:
-            raise NotImplementedError(
-                "WANSimulator(verify=True) is not ported yet (ROADMAP §1, W7: "
-                "analysis/schedule_check.py)"
-            )
+        self.verify = verify
 
     # -- single-hop cost -----------------------------------------------------
 
@@ -360,7 +357,22 @@ class WANSimulator:
             lats: Sequence[np.ndarray] | None = None) -> RoundResult:
         """Execute the schedule.  ``lats`` (a per-epoch latency-matrix list
         for stitched multi-epoch schedules; each transfer's propagation is
-        taken from ``lats[transfer.epoch]``) is event-engine only."""
+        taken from ``lats[transfer.epoch]``) is event-engine only.
+
+        With ``verify=True`` (the ``EngineConfig(verify_schedules=True)``
+        debug hook) every schedule is statically verified first — an
+        O(V+E) pass over the invariants both engines assume — and a
+        :class:`~repro_torch.analysis.schedule_check.ScheduleVerificationError`
+        (a ``ValueError``) is raised on any violation."""
+        if self.verify:
+            from ..analysis.schedule_check import (
+                ScheduleVerificationError,
+                verify_schedule,
+            )
+
+            violations = verify_schedule(schedule, n_nodes=self.n)
+            if violations:
+                raise ScheduleVerificationError(violations, schedule.label)
         if barrier if barrier is not None else self.barrier:
             if lats is not None:
                 raise ValueError(

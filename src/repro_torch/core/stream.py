@@ -44,7 +44,9 @@ retransmission RNG draws happen in event order, which differs between
 incremental and full runs — rejected at construction), ``admission=False``
 (later flows could then slow earlier ones and no prefix would ever be
 final) and the barrier engine (no cross-epoch semantics).  ``verify=True``
-(the reference's per-epoch schedule verifier) is not ported yet and raises.
+checks each appended segment with
+:class:`~repro_torch.analysis.schedule_check.StreamScheduleVerifier` before
+simulating it.
 """
 
 from __future__ import annotations
@@ -107,12 +109,8 @@ class StreamingTimeline:
         epoch_ms: float = 0.0,
         verify: bool = False,
     ):
-        if verify:
-            raise NotImplementedError(
-                "StreamingTimeline(verify=True) is not ported yet (ROADMAP §1, W7: "
-                "analysis/schedule_check.py)"
-            )
         self.n = n
+        self.verify = verify
         # the simulator carries the wire model (bandwidth/loss are
         # constructor-fixed, as in stitched runs); propagation comes from
         # each append's own latency matrix
@@ -129,6 +127,11 @@ class StreamingTimeline:
         self._finish: dict[int, float] = {}
         self._rank: dict[int, int] = {}
         self._phase: dict[int, int] = {}
+        self._verifier = None
+        if verify:
+            from ..analysis.schedule_check import StreamScheduleVerifier
+
+            self._verifier = StreamScheduleVerifier(n_nodes=n)
         # cumulative per-node commit matrix + per-epoch finish marks, stored
         # as a sliding window: physical row 0 is absolute epoch _phys_base,
         # rows below the _evicted frontier are dead and reclaimed by
@@ -277,6 +280,17 @@ class StreamingTimeline:
             rep_rank.append(r)
             ext_ready[i] = ext
             deps_local.append(tuple(ds))
+
+        if self._verifier is not None:
+            violations = self._verifier.check_epoch(
+                seg, phase_ranks, frontier=self._stitch.frontier(),
+            )
+            if violations:
+                from ..analysis.schedule_check import ScheduleVerificationError
+
+                raise ScheduleVerificationError(
+                    violations, f"{schedule.label}@epoch{k}"
+                )
 
         start, finish, _pred = self._sim.simulate_segment(
             seg,

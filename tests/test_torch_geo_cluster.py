@@ -5,8 +5,8 @@ and both digests; integers and digests exact, the simulator's floats
 exact) for ``flat``, ``hier`` and ``geococo`` under the event and barrier
 engines, with ``kcenter`` and ``modeled_cpu``; a WAN mask and a bounded
 stats window; the aggregator failover at mid-run (the second run restarts
-its epochs, so the stale rule fires); the config's rule table; the refused
-flag (``verify_schedules``, W7) raising; the device default; the example at
+its epochs, so the stale rule fires); the config's rule table; the flag
+once refused (``verify_schedules``, W7) accepted; the device default; the example at
 a small size; reference fault 15 (views that start empty on a loaded store)
 not copied.
 The serving plane, compression and the Raft plane have their own files
@@ -155,8 +155,11 @@ def test_config_rules_and_presets_as_the_reference():
     (dict(verify_schedules=True), "W7"),
 ])
 def test_refused_flags_name_their_roadmap_item(kw, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1, {item}"):
-        EngineConfig(n_nodes=3, **kw)
+    """The flags once refused by their ROADMAP item are accepted now that
+    the item is ported (``verify_schedules``: W7), as the reference's."""
+    got = EngineConfig(n_nodes=3, **kw)
+    want = ref.EngineConfig(n_nodes=3, **kw)
+    assert all(getattr(got, k) == getattr(want, k) for k in kw)
 
 
 def test_views_start_as_copies_of_a_loaded_store():
@@ -180,13 +183,21 @@ def test_views_start_as_copies_of_a_loaded_store():
 
 
 def test_refused_parts_outside_the_config():
+    """The verifier's parts outside the config, once refused (W7), run:
+    ``TransmissionSchedule.verify`` as the reference's, and
+    ``WANSimulator(verify=True)`` times a round as the unverified one."""
+    from repro_torch.analysis import reset_verified_schedule_count, verified_schedule_count
     from repro_torch.core.schedule import all_to_all_schedule
     from repro_torch.core.simulator import WANSimulator
 
-    with pytest.raises(NotImplementedError, match="W7"):
-        all_to_all_schedule(3, 1.0).verify()
-    with pytest.raises(NotImplementedError, match="W7"):
-        WANSimulator(BASE, verify=True)
+    assert all_to_all_schedule(3, 1.0).verify(n_nodes=3) == \
+        ref.all_to_all_schedule(3, 1.0).verify(n_nodes=3) == []
+    sched = all_to_all_schedule(5, 250_000.0)
+    reset_verified_schedule_count()
+    got = WANSimulator(BASE, 120.0, verify=True).run(sched)
+    want = WANSimulator(BASE, 120.0).run(sched)
+    assert verified_schedule_count() == 1
+    assert got.makespan_ms == want.makespan_ms and np.array_equal(got.finish_ms, want.finish_ms)
 
 
 def test_a_dropped_engine_frees_its_store_at_once():

@@ -229,8 +229,21 @@ def test_simulate_segment_equals_the_reference_and_refuses_unsound_modes():
             psim.WANSimulator(lat, 100.0, **kw).simulate_segment(
                 sched.transfers, rank=np.zeros(n, dtype=int), deps=[()] * n,
                 ext_ready=[0.0] * n, nic=psim.NicState.zeros(4))
-    with pytest.raises(NotImplementedError, match="W7"):
-        pstream.StreamingTimeline(4, verify=True)
+    # verify=True (once refused, W7) checks each appended segment and only
+    # observes: the same times as an unverified timeline, one clean segment
+    # counted an epoch
+    from repro_torch.analysis import reset_verified_schedule_count, verified_schedule_count
+
+    reset_verified_schedule_count()
+    plain, checked = pstream.StreamingTimeline(4, epoch_ms=2.0), \
+        pstream.StreamingTimeline(4, epoch_ms=2.0, verify=True)
+    for e in range(3):
+        a, b = (t.append_epoch(sched, lat * (1.0 + 0.1 * e), [1.0, 0.5, 2.0, 0.0])
+                for t in (plain, checked))
+        for x, y in ((a.commit_ms, b.commit_ms), (a.start_ms, b.start_ms),
+                     (a.finish_ms, b.finish_ms)):
+            assert np.array_equal(x, y)
+    assert verified_schedule_count() == 3
 
 
 @pytest.mark.parametrize("workload", ["ycsb", "tpcc"])
