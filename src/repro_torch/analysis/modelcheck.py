@@ -38,7 +38,7 @@ eviction) drive the port's own store, OCC and view code on the device of
 the checker's tables (``cuda`` unless the caller names another): each
 store is a :class:`~repro_torch.core.crdt.CRDTTable`, every join goes
 through ``CRDTTable.top_rows`` / ``join_rows`` and so through the
-``crdt_merge_rows`` kernel, validation is the port's tensor pass
+``crdt_join_rows`` kernel, validation is the port's tensor pass
 (``core/occ.py``), and views advance through the engine's own
 :func:`~repro_torch.core.replication.advance_views`.  Two tables' states
 are compared as tensors (values, lengths, versions, presence), which is
@@ -1099,7 +1099,7 @@ def check_eviction(
     :class:`StreamingTimeline` whose measured commit matrix realizes the
     interleaving exactly (integer-valued exec stages; epoch_ms=1), the
     engine's :func:`repro_torch.core.replication.advance_views` over
-    per-node view tables joined through ``crdt_merge_rows``, and a real
+    per-node view tables joined through ``crdt_join_rows``, and a real
     :class:`repro_torch.serve.plane.ServingSink`.
 
     Checked per interleaving: no view advancement ever reads a commit row
@@ -1247,7 +1247,7 @@ class _LastArrivalStore(CRDTTable):
     """Non-commutative merge: last *arrival* wins, ignoring the version
     order — a batch keeps each row's last update in batch order, and the
     join overwrites the table's row whatever its version (no
-    ``crdt_merge_rows``).  The confluence check must see permutation
+    ``crdt_join_rows``).  The confluence check must see permutation
     divergence."""
 
     def top_rows(self, rows, values, versions, lengths=None):

@@ -5,13 +5,13 @@
 reference's, host objects.  The replicated store is a device table,
 :class:`CRDTTable`, in place of the reference's dict ``DeltaCRDTStore``:
 per-key last-writer-wins registers under the total version order
-``(epoch, seq, node)``, joined through ``kernels.crdt_merge.crdt_merge_rows``
-(the CUDA kernel on the card).  The join is the lattice max by version, so
-it is commutative, associative and idempotent (ACI) and a batch merges to
-the same state whatever its order and multiplicity.  A node's snapshot
-view (the streaming engine's ``staleness_feedback``) is a table of its own,
-a :meth:`CRDTTable.snapshot` of the store, advanced by joining whole
-committed epochs held on the device as distinct rows
+``(epoch, seq, node)``, joined through ``kernels.crdt_merge.crdt_join_rows``
+(the CUDA kernel on the card, one launch a join).  The join is the lattice
+max by version, so it is commutative, associative and idempotent (ACI) and
+a batch merges to the same state whatever its order and multiplicity.  A
+node's snapshot view (the streaming engine's ``staleness_feedback``) is a
+table of its own, a :meth:`CRDTTable.snapshot` of the store, advanced by
+joining whole committed epochs held on the device as distinct rows
 (:meth:`CRDTTable.top_rows`) through :meth:`CRDTTable.join_rows`.
 
 Key strings are interned to rows by formula, three families one after
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..kernels.crdt_merge.ops import crdt_merge_rows
+from ..kernels.crdt_merge.ops import crdt_join_rows
 
 __all__ = ["Version", "Update", "merge_updates", "CRDTTable", "load_entries", "load_rows",
            "seeded_words", "LOAD_VERSION", "lexsort", "version_rank", "lex_greater"]
@@ -116,9 +116,8 @@ def version_rank(ver: torch.Tensor) -> torch.Tensor:
         return torch.zeros(0, dtype=torch.int64, device=ver.device)
     order = lexsort([ver[:, 2], ver[:, 1], ver[:, 0]])
     s = ver[order]
-    new = torch.ones(n, dtype=torch.int64, device=ver.device)
-    new[0] = 0
-    new[1:] = (s[1:] != s[:-1]).any(dim=1).to(torch.int64)
+    new = torch.zeros(n, dtype=torch.int64, device=ver.device)
+    new[1:] = (s[1:] != s[:-1]).any(dim=1)
     rank = torch.empty(n, dtype=torch.int64, device=ver.device)
     rank[order] = torch.cumsum(new, 0)
     return rank
@@ -613,33 +612,23 @@ class CRDTTable:
     def join_rows(self, keys: torch.Tensor, values: torch.Tensor, versions: torch.Tensor,
                   lengths: torch.Tensor) -> torch.Tensor:
         """Join distinct rows (:meth:`top_rows`' output) straight into the
-        table's rows through ``crdt_merge_rows``, which writes only the rows
-        it takes; returns the mask of rows taken, on the device (no sync).
-        The kernel compares int32 versions: each side's ``(epoch, seq,
-        node)`` becomes its dense rank among the ``2K`` versions of this
-        join, an order key exact for every pair it compares whatever the
-        triples' range (``Version.ZERO`` ranks lowest; equal versions share
-        a rank, and the kernel keeps the table's row on a tie, as the
-        reference's ``apply`` does).  The full triple and the length of the
-        winner go back into ``versions`` and ``lengths``."""
-        k = keys.numel()
-        if k == 0:
+        table through ``crdt_join_rows``, one launch: a row takes the
+        batch's value, version and length where it is absent or the batch's
+        ``(epoch, seq, node)`` is above its own (a tie keeps the table's
+        row), as the reference's ``apply`` stores; only the rows taken are
+        written.  Returns the mask of rows taken, on the device (no
+        sync)."""
+        if keys.numel() == 0:
             return torch.zeros(0, dtype=torch.bool, device=keys.device)
-        cur_ver = self.versions[keys]
-        rank = version_rank(torch.cat([cur_ver, versions])).to(torch.int32)
-        cur_rank, new_rank = rank[:k].contiguous(), rank[k:].contiguous()
-        out_rank = crdt_merge_rows(self.values, keys, cur_rank, values, new_rank)
+        took = crdt_join_rows(self.values, self.versions, self.lengths, self.present, keys,
+                              values, versions, lengths)
         self.merges += 1
-        took = out_rank != cur_rank
-        self.versions[keys] = torch.where(took[:, None], versions, cur_ver)
-        self.lengths[keys] = torch.where(took, lengths, self.lengths[keys])
-        self.present[keys] = self.present[keys] | took
         return took
 
     def merge_store(self, other: "CRDTTable") -> None:
         """Join every present row of ``other`` (a table of the same layout)
         into this one through :meth:`top_rows` and :meth:`join_rows`, so
-        through ``crdt_merge_rows``: the reference store's ``merge_store``.
+        through ``crdt_join_rows``: the reference store's ``merge_store``.
         The join is the lattice max, so no order of the rows is needed."""
         if other.layout() != self.layout():
             raise ValueError(f"merge_store joins tables of one layout; got {other.layout()} "
@@ -654,17 +643,20 @@ class CRDTTable:
         """How many updates of a batch would change the table applied one
         by one in batch order (the reference's ``apply_many`` count): those
         whose version is above the table's and above every earlier version
-        of the same row in the batch.  Sorted by (row, position), a running
-        maximum of the batch's dense ranks restarts at each row: each row's
-        segment is lifted above all earlier ones, so one ``cummax`` serves
-        all rows."""
+        of the same row in the batch.  An absent row ranks below every
+        version, ``Version.ZERO`` included: the reference stores into an
+        absent key whatever the version.  Sorted by (row, position), a
+        running maximum of the batch's dense ranks restarts at each row:
+        each row's segment is lifted above all earlier ones, so one
+        ``cummax`` serves all rows."""
         k = rows.numel()
         if k == 0:
             return 0
         rows = rows.to(torch.int64)
         rank = version_rank(torch.cat([self.versions[rows], versions]))
+        cur = torch.where(self.present[rows], rank[:k], -1)
         order = torch.sort(rows, stable=True).indices
-        r, cur, new = rows[order], rank[:k][order], rank[k:][order]
+        r, cur, new = rows[order], cur[order], rank[k:][order]
         start = torch.ones_like(r, dtype=torch.bool)
         start[1:] = r[1:] != r[:-1]
         lift = (torch.cumsum(start, 0) - 1) * (2 * k + 1)

@@ -34,7 +34,7 @@ Throughput model, two regimes (the reference's):
   ``staleness_feedback=True`` feeds the measured timing back into OCC:
   each node keeps its own snapshot view, a ``CRDTTable`` on the card made
   by ``store.snapshot()`` when ``run()`` starts, advanced by joining whole
-  committed epochs (:func:`advance_views`, one ``crdt_merge_rows`` launch a
+  committed epochs (:func:`advance_views`, one ``crdt_join_rows`` launch a
   view and epoch) once the stitched simulation has delivered that node's
   inbound transfers.  Each node's reads and rewrites come from its view,
   each aggregator filters against its own view, and validation still runs
@@ -378,7 +378,7 @@ def advance_views(
     prefix (a node merges epoch k only once its k-th inbound transfers have
     all delivered — the same per-node commit dependency ``stitch_schedules``
     gates sends on), a whole epoch's committed rows at a time through
-    ``CRDTTable.join_rows`` (one ``crdt_merge_rows`` launch, no sync).
+    ``CRDTTable.join_rows`` (one ``crdt_join_rows`` launch, no sync).
 
     ``commit_at(k, i)`` reads the measured commit time of epoch ``k`` at
     node ``i`` for ``k < n_done``; ``pending`` maps epoch -> its committed

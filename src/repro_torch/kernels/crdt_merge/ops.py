@@ -1,6 +1,8 @@
 """The versioned CRDT merge of update batches, and the same join straight
-into a table's rows (``crdt_merge_rows``): the hand-written CUDA kernels on
-the card, the plain PyTorch versions (``ref.py``) on the CPU.
+into a table's rows: by int32 ranks (``crdt_merge_rows``) or into the
+table's own version, length and presence columns (``crdt_join_rows``, the
+store's join).  The hand-written CUDA kernels on the card, the plain
+PyTorch versions (``ref.py``) on the CPU.
 
 Counterpart of ``repro/kernels/crdt_merge/ops.py``, without its
 ``use_kernel`` and ``interpret`` switches: the device of the tensors decides.
@@ -17,10 +19,10 @@ import functools
 import torch
 
 from .. import _build, work
-from .ref import crdt_merge_ref, crdt_merge_rows_ref
+from .ref import crdt_join_rows_ref, crdt_merge_ref, crdt_merge_rows_ref
 
 __all__ = ["crdt_merge", "crdt_merge_many", "crdt_merge_ref", "crdt_merge_rows",
-           "crdt_merge_rows_ref"]
+           "crdt_merge_rows_ref", "crdt_join_rows", "crdt_join_rows_ref"]
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int32)
 
@@ -38,6 +40,15 @@ def _kernel():
 def _rows_kernel():
     fn = _build.load("crdt_merge").crdt_merge_rows_forward
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _join_kernel():
+    fn = _build.load("crdt_merge").crdt_join_rows_forward
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
                    + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -172,6 +183,69 @@ def crdt_merge_rows(
     return out_rank
 
 
+def crdt_join_rows(
+    table_val: torch.Tensor,       # (R, N), joined in place
+    table_ver: torch.Tensor,       # (R, 3) int64 (epoch, seq, node), in place
+    table_len: torch.Tensor,       # (R,) int64, in place
+    table_present: torch.Tensor,   # (R,) bool, in place
+    rows: torch.Tensor,            # (K,) int64
+    new_val: torch.Tensor,         # (K, N)
+    new_ver: torch.Tensor,         # (K, 3) int64
+    new_len: torch.Tensor,         # (K,) int64
+) -> torch.Tensor:
+    """Join a batch into a table's columns in place: row ``rows[i]`` takes
+    the batch's value, version and length, and becomes present, where it is
+    absent or ``new_ver[i]`` is above its version in the lexicographic
+    order of ``(epoch, seq, node)`` (int64, any range); a tie keeps the
+    table's row.  Returns ``took`` (K,) bool, the rows taken.  It is the
+    reference store's ``apply`` of each row, and ``crdt_merge``'s function
+    with side a the table's rows; a row the table keeps is not written.
+
+    Precondition, not checked: ``rows`` are distinct.  Each row must lie in
+    ``[0, R)``: on the CPU an index outside raises, on the card the kernel
+    traps.  CPU tensors take the plain version.  CUDA tensors launch the
+    kernel, which takes contiguous float32, bfloat16 or int32 payloads of
+    one dtype and contiguous int64 versions, lengths and rows and bool
+    presence; anything else raises.  Meta tensors give ``took`` and touch
+    nothing.
+    """
+    if table_val.dim() != 2 or new_val.dim() != 2 or new_val.shape[1] != table_val.shape[1]:
+        raise ValueError(f"table and batch must be (R, N) and (K, N); got "
+                         f"{tuple(table_val.shape)} and {tuple(new_val.shape)}")
+    (n_rows, n), k = table_val.shape, new_val.shape[0]
+    shapes = {"table_ver": (table_ver, (n_rows, 3)), "table_len": (table_len, (n_rows,)),
+              "table_present": (table_present, (n_rows,)), "rows": (rows, (k,)),
+              "new_ver": (new_ver, (k, 3)), "new_len": (new_len, (k,))}
+    for name, (x, shape) in shapes.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}; got {tuple(x.shape)}")
+        want = torch.bool if name == "table_present" else torch.int64
+        if x.dtype != want:
+            raise TypeError(f"{name} must be {want}; got {x.dtype}")
+    if new_val.dtype != table_val.dtype:
+        raise TypeError(f"payloads of two dtypes: {table_val.dtype} and {new_val.dtype}")
+    args = (table_val, table_ver, table_len, table_present, rows, new_val, new_ver, new_len)
+    call_work = work.crdt_join_rows(k, n, table_val.element_size())
+    if all(x.device.type == "cpu" for x in args):
+        with work.kernel_call(call_work):
+            lo, hi = (int(rows.min()), int(rows.max())) if k else (0, 0)
+            if lo < 0 or hi >= n_rows:
+                raise IndexError(f"rows must lie in [0, {n_rows}); got {lo} to {hi}")
+            return crdt_join_rows_ref(*args)
+    _check_kernel_args("crdt_join_rows", args, table_val.dtype)
+
+    with work.kernel_call(call_work):
+        took = torch.empty(k, dtype=torch.bool, device=table_val.device)
+    if k == 0 or table_val.device.type == "meta":
+        return took
+    _launch("crdt_join_rows", _join_kernel(), table_val.device, table_val.data_ptr(),
+            table_ver.data_ptr(), table_len.data_ptr(), table_present.data_ptr(), n_rows,
+            rows.data_ptr(), new_val.data_ptr(), new_ver.data_ptr(), new_len.data_ptr(),
+            took.data_ptr(), k, n, table_val.element_size())
+    crdt_join_rows.launches += 1
+    return took
+
+
 def crdt_merge_many(batches) -> tuple[torch.Tensor, torch.Tensor]:
     """Fold-merge a list of (values, versions) batches, first to last (ACI,
     so any order gives the same versions, and the same payloads wherever
@@ -187,3 +261,4 @@ def crdt_merge_many(batches) -> tuple[torch.Tensor, torch.Tensor]:
 # main paths to show that every merge and every join went through a kernel
 crdt_merge.launches = 0
 crdt_merge_rows.launches = 0
+crdt_join_rows.launches = 0

@@ -13,13 +13,16 @@ reordered batches merge to the same state.  Counterpart of
 
 ``crdt_merge_rows_ref`` is the same join with side a a table's rows:
 gathered, merged with the batch and scattered back, in place.
+``crdt_join_rows_ref`` joins into a table's own columns (values, versions,
+lengths, presence), comparing ``(epoch, seq, node)`` triples: the same
+function with an absent row taking any version.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["crdt_merge_ref", "crdt_merge_rows_ref"]
+__all__ = ["crdt_merge_ref", "crdt_merge_rows_ref", "crdt_join_rows_ref"]
 
 
 def crdt_merge_ref(
@@ -44,3 +47,27 @@ def crdt_merge_rows_ref(
     out_val, out_rank = crdt_merge_ref(table_val[rows], cur_rank, new_val, new_rank)
     table_val[rows] = out_val
     return out_rank
+
+
+def _lex_greater(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a[i] > b[i]`` in the lexicographic order of ``(N, 3)`` rows."""
+    e, s = a[:, 0] == b[:, 0], a[:, 1] == b[:, 1]
+    return (a[:, 0] > b[:, 0]) | (e & (a[:, 1] > b[:, 1])) | (e & s & (a[:, 2] > b[:, 2]))
+
+
+def crdt_join_rows_ref(
+    table_val: torch.Tensor,       # (R, N), joined in place
+    table_ver: torch.Tensor,       # (R, 3) int64 (epoch, seq, node), in place
+    table_len: torch.Tensor,       # (R,) int64, in place
+    table_present: torch.Tensor,   # (R,) bool, in place
+    rows: torch.Tensor,            # (K,) int64, distinct
+    new_val: torch.Tensor,         # (K, N)
+    new_ver: torch.Tensor,         # (K, 3) int64
+    new_len: torch.Tensor,         # (K,) int64
+) -> torch.Tensor:
+    took = ~table_present[rows] | _lex_greater(new_ver, table_ver[rows])
+    table_val[rows] = torch.where(took[:, None], new_val, table_val[rows])
+    table_ver[rows] = torch.where(took[:, None], new_ver, table_ver[rows])
+    table_len[rows] = torch.where(took, new_len, table_len[rows])
+    table_present[rows] = table_present[rows] | took
+    return took

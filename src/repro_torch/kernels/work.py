@@ -21,7 +21,8 @@ import contextlib
 from typing import Iterator, NamedTuple
 
 __all__ = ["Work", "wkv6", "wkv6_backward", "rglru", "rglru_backward", "whitedata_filter",
-           "crdt_merge", "crdt_merge_rows", "kernel_call", "hidden", "COUNTERS"]
+           "crdt_merge", "crdt_merge_rows", "crdt_join_rows", "kernel_call", "hidden",
+           "COUNTERS"]
 
 
 class Work(NamedTuple):
@@ -79,6 +80,18 @@ def crdt_merge_rows(k: int, n: int, size: int, taken: int | None = None) -> Work
     passes the rows it took."""
     taken = k if taken is None else taken
     return Work(k, 2 * taken * n * size + (3 * 4 + 8) * k)
+
+
+def crdt_join_rows(k: int, n: int, size: int, taken: int | None = None) -> Work:
+    """k rows of n elements joined into a table's columns in place: each
+    row's index, both (epoch, seq, node) triples, the batch's length and the
+    table's presence byte read and ``took`` written (66 bytes); each row the
+    batch takes also reads and writes its payload and writes its triple,
+    length and presence (33 bytes more); one compare per row.  The wrapper
+    counts every row taken; a bound from a run's data passes the rows it
+    took."""
+    taken = k if taken is None else taken
+    return Work(k, 2 * taken * n * size + 66 * k + 33 * taken)
 
 
 # the active cost counters, innermost last (``launch.cost.CostMode`` pushes

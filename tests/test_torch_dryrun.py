@@ -204,6 +204,17 @@ def _kernel_case(name: str, device: str):
         new = torch.randint(0, 5, (9,), generator=g, dtype=torch.int32).to(device)
         return (lambda: (merge_ops.crdt_merge_rows(table, rows, cur, new_val, new),),
                 work.crdt_merge_rows(9, 6, 4), merge_ops.crdt_merge_rows)
+    if name == "crdt_join_rows":
+        table = (torch.randint(0, 100, (20, 6), generator=g, dtype=torch.int32).to(device),
+                 torch.randint(-1, 3, (20, 3), generator=g).to(device),
+                 torch.randint(0, 24, (20,), generator=g).to(device),
+                 (torch.rand(20, generator=g) < 0.7).to(device))
+        batch = (torch.randperm(20, generator=g)[:9].to(device),
+                 torch.randint(0, 100, (9, 6), generator=g, dtype=torch.int32).to(device),
+                 torch.randint(-1, 3, (9, 3), generator=g).to(device),
+                 torch.randint(0, 24, (9,), generator=g).to(device))
+        return (lambda: (merge_ops.crdt_join_rows(*table, *batch),),
+                work.crdt_join_rows(9, 6, 4), merge_ops.crdt_join_rows)
     m, w = 9, 6
     va = torch.randint(0, 100, (m, w), generator=g, dtype=torch.int32).to(device)
     vb = torch.randint(0, 100, (m, w), generator=g, dtype=torch.int32).to(device)
@@ -214,7 +225,7 @@ def _kernel_case(name: str, device: str):
 
 
 KERNELS = ["wkv6", "wkv6_backward", "rglru_scan", "rglru_scan_backward", "whitedata_filter",
-           "crdt_merge", "crdt_merge_rows"]
+           "crdt_merge", "crdt_merge_rows", "crdt_join_rows"]
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])

@@ -3,7 +3,7 @@ epochs through ``GeoCluster`` on ``cuda`` and on the CPU give every
 ``EpochStats`` field, the message matrix and both digests equal, for
 ``flat``, ``hier`` and ``geococo`` under both engines (and TPC-C epochs from
 a loaded store under ``flat`` and ``geococo``), with every commit
-joined through the CUDA join kernel (``crdt_merge_rows``); a streaming run
+joined through the CUDA join kernel (``crdt_join_rows``); a streaming run
 with per-node views (``staleness_feedback``, both stream modes), each view
 joining its epochs through the same kernel, and with the serving plane on
 (``ServeStats`` field for field); ``geococo-zlib`` and flat with
@@ -58,9 +58,9 @@ def run(device, strategy: str, barrier: bool, epochs: int = 4):
 @pytest.mark.parametrize("barrier", [False, True])
 @pytest.mark.parametrize("strategy", ["flat", "hier", "geococo"])
 def test_cluster_on_the_card_equals_its_cpu_run(card, strategy, barrier):
-    before = merge_ops.crdt_merge_rows.launches
+    before = merge_ops.crdt_join_rows.launches
     eng, got = run(card, strategy, barrier)
-    launches = merge_ops.crdt_merge_rows.launches - before
+    launches = merge_ops.crdt_join_rows.launches - before
     _, want = run("cpu", strategy, barrier)
     for a, b in zip(want.epochs, got.epochs):
         assert dataclasses.asdict(b) == dataclasses.asdict(a), a.epoch
@@ -118,11 +118,11 @@ def test_tpcc_from_a_loaded_store_on_the_card_equals_its_cpu_run(card, strategy)
                                        mix="TPCC-A"), 5, seed=3)
         eng.store = gen.table(device)
         gen.load(eng.store, seed=5)
-        before = merge_ops.crdt_merge_rows.launches
+        before = merge_ops.crdt_join_rows.launches
         rs = eng.run(gen, jitter_trace(BASE, 4, np.random.default_rng(0)), txns_per_node=200)
         out[str(device)] = ([dataclasses.asdict(e) for e in rs.epochs], rs.state_digest,
                             rs.value_digest, rs.msg_matrix.tolist(), gen.neworder_count,
-                            merge_ops.crdt_merge_rows.launches - before)
+                            merge_ops.crdt_join_rows.launches - before)
     got, want = out[str(card)], out["cpu"]
     assert got[:5] == want[:5]
     assert got[5] == 4
@@ -154,9 +154,9 @@ def feedback_run(device, mode: str, **cfg):
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["incremental", "resim"])
 def test_feedback_run_on_the_card_equals_its_cpu_run(card, mode):
-    before = merge_ops.crdt_merge_rows.launches
+    before = merge_ops.crdt_join_rows.launches
     eng, got = feedback_run(card, mode)
-    launches = merge_ops.crdt_merge_rows.launches - before
+    launches = merge_ops.crdt_join_rows.launches - before
     cpu, want = feedback_run("cpu", mode)
     for a, b in zip(want.epochs, got.epochs):
         assert dataclasses.asdict(b) == dataclasses.asdict(a), a.epoch

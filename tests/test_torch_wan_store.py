@@ -254,3 +254,45 @@ def test_warehouse_key_interning():
                                                                    "w1:i2", "w1:i3"]
     got, _ = mixed.key_bytes(torch.arange(mixed.n_rows))
     assert [bytes(r).rstrip(b"\0").decode() for r in got.tolist()] == keys
+
+
+@pytest.mark.parametrize("loaded", [False, True])
+@pytest.mark.parametrize("path", ["apply_many", "merge_rows", "merge_store"])
+@pytest.mark.parametrize("version", ["ZERO", "LOAD_VERSION"])
+def test_fault_16_an_update_into_an_absent_row_is_stored_whatever_its_version(
+        version, path, loaded):
+    """Fault 16: the reference's ``apply`` stores an update into an absent
+    key whatever its version, ``Version.ZERO`` included; the port's absent
+    rows carry ``Version.ZERO``, and its join once kept them on that tie.
+    Into an empty table, or one whose k2 is loaded at the same version (a
+    tie there keeps the row), each path gives the reference's state, both
+    digests and, through ``apply_many``, its count."""
+    ver = (-1, -1, -1) if version == "ZERO" else tuple(pcrdt.LOAD_VERSION)
+    ups = [("k0", b"a" * 8, ver), ("k1", b"b" * 8, (0, 0, 0)), ("k0", b"c" * 8, ver),
+           ("k2", b"d" * 8, ver), ("k3", b"e" * 5, ver)]
+    ref_ups = [rcrdt.Update(k, v, rcrdt.Version(*t)) for k, v, t in ups]
+    port = [pcrdt.Update(k, v, pcrdt.Version(*t)) for k, v, t in ups]
+    table, ref = pcrdt.CRDTTable(6, 8, device="cpu"), rcrdt.DeltaCRDTStore()
+    if loaded:
+        pcrdt.load_entries(table, [("k2", b"x" * 8, ver)])
+        ref.apply(rcrdt.Update("k2", b"x" * 8, rcrdt.Version(*ver)))
+    if path == "merge_store":
+        other, other_ref = pcrdt.CRDTTable(6, 8, device="cpu"), rcrdt.DeltaCRDTStore()
+        other.apply_many(port)
+        other_ref.apply_many(ref_ups)
+        table.merge_store(other)
+        ref.merge_store(other_ref)
+    else:
+        want = ref.apply_many(ref_ups)
+        if path == "apply_many":
+            assert table.apply_many(port) == want == 4 - loaded
+        else:
+            rows = torch.tensor([table.row_of(u.key) for u in port])
+            table.merge_rows(rows, table.pack([u.value for u in port]),
+                             torch.tensor([vtuple(u.version) for u in port]),
+                             torch.tensor([len(u.value) for u in port]))
+    assert _state(table) == _ref_state(ref)
+    assert (table.digest(), table.digest(values_only=True)) == \
+        (ref.digest(), ref.digest(values_only=True))
+    assert sorted(table.full_state()) == ["k0", "k1", "k2", "k3"]
+    assert table.get("k0") == b"a" * 8 and table.get("k2") == (b"x" if loaded else b"d") * 8

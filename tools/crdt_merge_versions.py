@@ -158,8 +158,8 @@ def main() -> None:
     # ---- device times, the versions in turns
     cases = {"dense (3400, 250)": cs.merge_bound(K, N, 4),
              "dense (10^7, 250)": cs.merge_bound(BIG_ROWS, N, 4),
-             "gather, merge, scatter": cs.join_bound(K, N, 4, K),
-             "join": cs.join_bound(K, N, 4, K)}
+             "gather, merge, scatter": cs.ranked_bound(K, N, 4, K),
+             "join": cs.ranked_bound(K, N, 4, K)}
     times: dict = {}
     for order in (list(fns), list(fns)[::-1]):
         for name in order:
